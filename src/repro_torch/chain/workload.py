@@ -1,0 +1,460 @@
+"""The ``Workload`` protocol: what a block's useful work *is*. The port of
+``repro/chain/workload.py`` for the full, optimal and classic payloads.
+
+Each is a ``Workload``: ``prepare(ctx) -> PreparedWork`` (resolve the
+published jash against the block's work target), ``mine(work) ->
+BlockPayload`` (produce the commitment + evidence), ``verify(payload)
+-> bool`` (bit-exact re-execution — the §3 req. 2 determinism audit any
+peer runs on receive), and ``reward(book, payload)`` (credit miners,
+deterministically derivable from the payload so every node's book
+agrees). Mining and verification run on the workload's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import (Dict, List, Optional, Protocol, Sequence,
+                    Tuple, runtime_checkable)
+
+import numpy as np
+import torch
+
+from repro_torch.core.authority import classic_jash
+from repro_torch.core.executor import FullResult, run_full, run_optimal
+from repro_torch.core.jash import Jash, JashMeta
+from repro_torch.core.ledger import merkle_root
+from repro_torch.core.rewards import CreditBook, reward_full, reward_optimal
+from repro_torch.core.verify import (quorum_verify, quorum_verify_batched,
+                                     recompute_roots_batched)
+from repro_torch.device import DeviceLike, resolve
+
+# Global miner-id lane: chain-level miner id = node_id * MINER_LANE +
+# local lane, so per-node credit books agree on who earned what
+# without coordinating id allocation.
+MINER_LANE = 1 << 16
+
+
+def global_miner(node_id: int, local: int) -> int:
+    return int(node_id) * MINER_LANE + int(local)
+
+
+class ChainError(RuntimeError):
+    """A block failed verification or could not be committed."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockContext:
+    """Everything a workload needs to know about the block being mined.
+
+    ``lanes`` is the miner partition on one card (``Node(n_lanes=k)``);
+    lane ``l`` of node ``i`` is credited as ``global_miner(i, l)``. Lanes
+    never change the mined bits, so peers verify with ``lanes=1``."""
+    height: int
+    prev_hash: str
+    node_id: int = 0
+    jash: Optional[Jash] = None        # RA publication ("queued"/"classic")
+    source: str = "queued"
+    work: Optional[int] = None         # args-per-block target (§3.1/§5)
+    block_reward: float = 50.0
+    lanes: int = 1                     # miner lanes on the card
+    device: Optional[torch.device] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedWork:
+    """A resolved block assignment: the exact jash the miners will run."""
+    ctx: BlockContext
+    jash: Optional[Jash]
+
+
+@dataclasses.dataclass
+class BlockPayload:
+    """Block commitment + in-process evidence.
+
+    The committed fields (``jash_id`` .. ``state_digest``) are what the
+    ledger header signs; the evidence fields carry enough for a peer to
+    re-verify bit-exactly."""
+    workload: str                      # "full" | "optimal" | "classic"
+    jash_id: str
+    merkle_root: str
+    n_results: int
+    winner: Optional[int] = None       # global miner id
+    best_res: Optional[str] = None
+    state_digest: str = ""
+    origin: int = 0                    # node id that mined the block
+    block_reward: float = 50.0
+    # evidence ----------------------------------------------------------
+    jash: Optional[Jash] = None
+    full: Optional[FullResult] = None
+    best_arg: Optional[int] = None
+
+
+RewardEntries = Tuple[Tuple[int, float], ...]
+
+
+def _apply_rewards(book: CreditBook, staged: CreditBook) -> RewardEntries:
+    """Merge a staged book into ``book`` and return the applied entries."""
+    entries = tuple(sorted(staged.balances.items()))
+    for miner, amount in entries:
+        book.credit(miner, amount)
+    return entries
+
+
+@runtime_checkable
+class Workload(Protocol):
+    """The block-payload contract every mining mode implements.
+
+    Stateful workloads (whose ``verify`` advances local state) also expose
+    ``snapshot()``/``restore(snap)`` so fork choice can roll them back.
+    Stateless workloads may expose ``verify_batch(payloads) ->
+    List[bool]``, which must accept/reject bit-identically to per-payload
+    ``verify`` calls."""
+    name: str
+
+    def prepare(self, ctx: BlockContext) -> PreparedWork: ...
+
+    def mine(self, work: PreparedWork) -> BlockPayload: ...
+
+    def verify(self, payload: BlockPayload) -> bool: ...
+
+    def reward(self, book: CreditBook, payload: BlockPayload
+               ) -> RewardEntries: ...
+
+
+def is_stateful(wl: object) -> bool:
+    """True for workloads whose ``verify`` advances local state (they
+    expose the ``snapshot``/``restore`` rollback pair)."""
+    return hasattr(wl, "snapshot")
+
+
+def verify_chain_batched(workloads: Dict[str, "Workload"],
+                         payloads: Sequence[BlockPayload],
+                         precleared: Optional[Sequence[bool]] = None
+                         ) -> bool:
+    """Re-verify a chain segment, batching stateless workloads.
+
+    Accept/reject is identical to ``all(wl.verify(p) for p in
+    payloads)``: stateless payloads are grouped per workload and handed to
+    ``verify_batch``, then stateful payloads replay in chain order.
+    ``precleared[i]`` marks payload ``i`` as already verified in this
+    trust domain (a ``VerifyCache`` hit) — honored for stateless
+    workloads only."""
+    if precleared is not None and len(precleared) != len(payloads):
+        raise ValueError("precleared must align with payloads")
+    stateless: Dict[str, List[int]] = {}
+    stateful_idx: List[int] = []
+    for i, payload in enumerate(payloads):
+        wl = workloads.get(payload.workload)
+        if wl is None:
+            return False
+        if is_stateful(wl):
+            stateful_idx.append(i)
+        elif not (precleared is not None and precleared[i]):
+            stateless.setdefault(payload.workload, []).append(i)
+    for name, idxs in stateless.items():
+        wl = workloads[name]
+        group = [payloads[i] for i in idxs]
+        if hasattr(wl, "verify_batch"):
+            oks = wl.verify_batch(group)
+        else:
+            oks = [wl.verify(p) for p in group]
+        if not all(oks):
+            return False
+    for i in stateful_idx:                  # chain order == replay order
+        if not workloads[payloads[i].workload].verify(payloads[i]):
+            return False
+    return True
+
+
+def _batched_stateless_verify(payloads: Sequence[BlockPayload],
+                              classify, *, fraction: float,
+                              device: torch.device) -> List[bool]:
+    """The shared engine behind stateless ``verify_batch``: classify each
+    payload, dedup byte-identical evidence, then batch the root
+    recomputation (``recompute_roots_batched``) and the quorum
+    re-execution (``quorum_verify_batched``).
+
+    ``classify(payload)`` returns ``False``/``None`` (rejected), ``True``
+    (accepted without batching) or ``(jash, dedup_key)`` (re-verify with
+    ``jash``; ``dedup_key`` collapses byte-identical payloads, ``None``
+    disables dedup)."""
+    oks: List[Optional[bool]] = [None] * len(payloads)
+    jashes: Dict[int, Jash] = {}
+    rep_of: Dict[object, int] = {}     # dedup key -> first index
+    dup_of: Dict[int, int] = {}        # duplicate index -> rep index
+    live: List[int] = []
+    for i, payload in enumerate(payloads):
+        verdict = classify(payload)
+        if verdict is None or isinstance(verdict, bool):
+            oks[i] = bool(verdict)
+            continue
+        jash, key = verdict
+        if key is not None:
+            rep = rep_of.setdefault(key, i)
+            if rep != i:
+                dup_of[i] = rep
+                continue
+        jashes[i] = jash
+        oks[i] = True
+        live.append(i)
+    roots = recompute_roots_batched([payloads[i].full for i in live],
+                                    device=device)
+    for i, root in zip(live, roots):
+        if root != payloads[i].merkle_root:
+            oks[i] = False
+    live = [i for i in live if oks[i]]
+    reports = quorum_verify_batched(
+        [(jashes[i], payloads[i].full) for i in live], fraction=fraction,
+        device=device)
+    for i, report in zip(live, reports):
+        if not report.ok:
+            oks[i] = False
+    for i, rep in dup_of.items():
+        oks[i] = oks[rep]
+    return oks
+
+
+# ---------------------------------------------------------------------------
+# full mode
+# ---------------------------------------------------------------------------
+
+
+def _sized(jash: Jash, work: Optional[int]) -> Jash:
+    """Re-publish ``jash`` with the controller's args-per-block target
+    (§3.1 granularity: ``max_arg`` trims below the power-of-two bound)."""
+    if work is None or work >= jash.meta.n_args:
+        return jash
+    meta = dataclasses.replace(jash.meta, max_arg=max(int(work), 1))
+    return Jash(jash.name, jash.fn, meta, example_args=jash.example_args)
+
+
+class JashFullWorkload:
+    """§3.3 full execution: every valid arg, Merkle-committed, reward
+    split over first submissions with the §4 leading-zeros bonus."""
+
+    name = "full"
+
+    def __init__(self, *, verify_fraction: float = 0.25,
+                 bonus_fraction: float = 0.1,
+                 device: DeviceLike = None) -> None:
+        self.verify_fraction = verify_fraction
+        self.bonus_fraction = bonus_fraction
+        self.device = resolve(device)
+
+    def prepare(self, ctx: BlockContext) -> PreparedWork:
+        """Resolve the published jash against the block's args-per-block
+        target.  Raises ``ChainError`` without a publication — full mode
+        never invents its own work."""
+        if ctx.jash is None:
+            raise ChainError("full workload needs a published jash")
+        return PreparedWork(ctx, _sized(ctx.jash, ctx.work))
+
+    def mine(self, work: PreparedWork) -> BlockPayload:
+        """Evaluate every valid arg on the card and commit the Merkle root
+        of the leaf digests (reduced on the card)."""
+        ctx, jash = work.ctx, work.jash
+        full = run_full(jash, lanes=ctx.lanes, device=ctx.device or self.device)
+        return BlockPayload(
+            workload=self.name, jash_id=jash.source_id(),
+            merkle_root=full.commit_root(), n_results=len(full.args),
+            origin=ctx.node_id, block_reward=ctx.block_reward,
+            jash=jash, full=full)
+
+    def verify(self, payload: BlockPayload) -> bool:
+        """The §3 req. 2 determinism audit every peer runs on receive:
+        (a) the committed ``jash_id`` must equal the evidence jash's
+        ``source_id()``; (b) the committed root is recomputed
+        *independently* with hashlib (not the device kernel that produced
+        it) from the raw ``(arg, res)`` arrays; (c) a random
+        ``verify_fraction`` of the arg space is re-executed bit-exactly."""
+        full = payload.full
+        if full is None or payload.jash is None:
+            return False
+        if payload.jash.source_id() != payload.jash_id:
+            return False            # committed id must match the evidence
+        if merkle_root(list(full.merkle_leaves),
+                       backend="hashlib") != payload.merkle_root:
+            return False
+        return quorum_verify(payload.jash, full,
+                             fraction=self.verify_fraction,
+                             device=self.device).ok
+
+    def verify_batch(self, payloads: Sequence[BlockPayload]) -> List[bool]:
+        """``verify`` over a whole segment, bit-identical per payload;
+        byte-identical payloads collapse to one representative."""
+
+        def classify(p: BlockPayload):
+            if (p.full is None or p.jash is None
+                    or p.jash.source_id() != p.jash_id):
+                return False
+            # the fn object is part of the key: source_id() hashes only
+            # name+meta, so a payload pairing honest evidence with a
+            # different function must run its own quorum re-execution
+            key = (p.jash.fn, p.jash_id, p.merkle_root,
+                   hashlib.sha256(p.full.packed_words().tobytes())
+                   .digest())
+            return p.jash, key
+
+        return _batched_stateless_verify(payloads, classify,
+                                         fraction=self.verify_fraction,
+                                         device=self.device)
+
+    def reward(self, book: CreditBook, payload: BlockPayload
+               ) -> RewardEntries:
+        """Split the block reward evenly over first submissions plus the
+        §4 leading-zeros bonus. Derived only from the payload, so every
+        node's book stays bit-identical."""
+        full = payload.full
+        staged = CreditBook()
+        submitters = [global_miner(payload.origin, m)
+                      for m in full.miner_of]
+        # §4: the miner whose submission hash has the most leading zeros
+        # takes a bonus slice — lexicographic min over sha256(arg || res)
+        bonus = None
+        if self.bonus_fraction > 0.0 and len(full.hashes):
+            idx = np.arange(len(full.hashes))
+            for col in range(full.hashes.shape[1]):
+                word = full.hashes[idx, col]
+                idx = idx[word == word.min()]
+                if len(idx) == 1:
+                    break
+            bonus = global_miner(payload.origin,
+                                 int(full.miner_of[idx[0]]))
+        reward_full(staged, submitters, payload.block_reward,
+                    bonus_winner=bonus, bonus_fraction=self.bonus_fraction)
+        return _apply_rewards(book, staged)
+
+
+# ---------------------------------------------------------------------------
+# optimal mode
+# ---------------------------------------------------------------------------
+
+
+def _optimal_leaf(opt) -> bytes:
+    return (np.uint32(opt.best_arg).tobytes()
+            + opt.best_res.astype("<u4").tobytes())
+
+
+class JashOptimalWorkload:
+    """§3.3 optimal execution: lowest res wins the whole block reward."""
+
+    name = "optimal"
+
+    # The replay is a pure function of (jash.fn, n_args), so a node
+    # re-verifying many blocks over the same arg space may reuse its own
+    # earlier replay (per instance: trust stays node-local).
+    _REPLAY_MEMO_MAX = 8
+
+    def __init__(self, *, device: DeviceLike = None) -> None:
+        self.device = resolve(device)
+        self._replay_memo: Dict[tuple, object] = {}
+
+    def _replay(self, jash: Jash):
+        key = (jash.fn, jash.meta.n_args)
+        opt = self._replay_memo.get(key)
+        if opt is None:
+            opt = run_optimal(jash, device=self.device)
+            if len(self._replay_memo) >= self._REPLAY_MEMO_MAX:
+                self._replay_memo.pop(next(iter(self._replay_memo)))
+            self._replay_memo[key] = opt
+        return opt
+
+    def prepare(self, ctx: BlockContext) -> PreparedWork:
+        """Resolve the published jash against the args-per-block target;
+        raises ``ChainError`` without a publication."""
+        if ctx.jash is None:
+            raise ChainError("optimal workload needs a published jash")
+        return PreparedWork(ctx, _sized(ctx.jash, ctx.work))
+
+    def mine(self, work: PreparedWork) -> BlockPayload:
+        """Argmin over the arg space across ``ctx.lanes`` miner lanes; the
+        winning lane's global miner id takes the block. Mining always
+        executes for real (block times feed the difficulty controller)."""
+        ctx, jash = work.ctx, work.jash
+        opt = run_optimal(jash, lanes=ctx.lanes,
+                          device=ctx.device or self.device)
+        return BlockPayload(
+            workload=self.name, jash_id=jash.source_id(),
+            merkle_root=merkle_root([_optimal_leaf(opt)]),
+            n_results=opt.n_evaluated,
+            winner=global_miner(ctx.node_id, opt.winner),
+            best_res=opt.best_res.tobytes().hex(),
+            origin=ctx.node_id, block_reward=ctx.block_reward,
+            jash=jash, best_arg=opt.best_arg)
+
+    def verify(self, payload: BlockPayload) -> bool:
+        """Deterministic argmin replay (§3 req. 2): the committed
+        ``jash_id`` must match the evidence, the claimed winner's lane must
+        belong to the claimed origin, and a single-lane re-execution must
+        reproduce ``(best_arg, best_res)`` and the one-leaf Merkle root
+        bit-exactly."""
+        if payload.jash is None:
+            return False
+        if payload.jash.source_id() != payload.jash_id:
+            return False            # committed id must match the evidence
+        if (payload.winner is None
+                or payload.winner // MINER_LANE != payload.origin):
+            return False
+        return self._replay_matches(payload, self._replay(payload.jash))
+
+    @staticmethod
+    def _replay_matches(payload: BlockPayload, opt) -> bool:
+        return (opt.best_arg == payload.best_arg
+                and opt.best_res.tobytes().hex() == payload.best_res
+                and merkle_root([_optimal_leaf(opt)]) == payload.merkle_root)
+
+    def verify_batch(self, payloads: Sequence[BlockPayload]) -> List[bool]:
+        """``verify`` over a segment: each distinct arg space is replayed
+        once and every payload compared against the shared replay."""
+        oks = []
+        for p in payloads:
+            if (p.jash is None or p.jash.source_id() != p.jash_id
+                    or p.winner is None
+                    or p.winner // MINER_LANE != p.origin):
+                oks.append(False)
+                continue
+            oks.append(self._replay_matches(p, self._replay(p.jash)))
+        return oks
+
+    def reward(self, book: CreditBook, payload: BlockPayload
+               ) -> RewardEntries:
+        """Winner takes the whole block reward."""
+        staged = CreditBook()
+        reward_optimal(staged, payload.winner, payload.block_reward)
+        return _apply_rewards(book, staged)
+
+
+# ---------------------------------------------------------------------------
+# classic fallback (§3.4)
+# ---------------------------------------------------------------------------
+
+
+class ClassicSha256Workload(JashOptimalWorkload):
+    """§3.4 back-compatibility: when the researcher queue is empty the
+    chain mines plain double-SHA-256 blocks — an optimal-mode search over
+    ``arg_bits`` nonces, lowest double-SHA-256 wins. ``Node.mine_block
+    (None)`` selects it whenever the RA queue is empty. Verification and
+    rewards are inherited from ``JashOptimalWorkload``."""
+
+    name = "classic"
+
+    def __init__(self, *, arg_bits: int = 10,
+                 device: DeviceLike = None) -> None:
+        super().__init__(device=device)
+        self.arg_bits = arg_bits
+        self._base: Optional[Jash] = None
+
+    def prepare(self, ctx: BlockContext) -> PreparedWork:
+        """Publish the classic double-SHA-256 jash over this workload's
+        nonce space."""
+        if ctx.jash is not None:
+            base = ctx.jash
+        else:
+            if self._base is None:
+                self._base = classic_jash()
+            base = self._base
+        jash = Jash(base.name, base.fn,
+                    JashMeta(arg_bits=self.arg_bits, res_bits=256,
+                             description=base.meta.description),
+                    example_args=base.example_args)
+        return PreparedWork(ctx, _sized(jash, ctx.work))

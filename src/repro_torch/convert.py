@@ -1,0 +1,50 @@
+"""Carry chain state from the JAX package into the port.
+
+The functions take the reference's state as plain data (JSON text, numpy
+arrays, dicts), never its objects, so this module imports nothing of
+``repro``. A block mined by either package can then be verified by the
+other.
+"""
+from __future__ import annotations
+
+import json
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch.core.executor import FullResult
+from repro_torch.core.ledger import Block, Ledger
+from repro_torch.core.rewards import CreditBook
+from repro_torch.device import DeviceLike
+
+
+def ledger_from_json(text: str) -> Ledger:
+    """A ledger from ``repro.core.ledger.Ledger.to_json()`` output."""
+    ledger = Ledger()
+    ledger.blocks = [Block(**fields) for fields in json.loads(text)]
+    return ledger
+
+
+def full_result_from_arrays(args, results, hashes, miner_of, leaf_digests,
+                            *, device: DeviceLike = None) -> FullResult:
+    """A ``FullResult`` from the reference's arrays, in its dtypes."""
+    args = np.asarray(args, np.uint32)
+    return FullResult(
+        args=args,
+        results=np.asarray(results, np.uint32).reshape(len(args), -1),
+        hashes=np.asarray(hashes, np.uint32),
+        miner_of=np.asarray(miner_of, np.int32),
+        leaf_digests=np.asarray(leaf_digests, np.uint32),
+        device=device)
+
+
+def credit_book_from_balances(balances: Dict[int, float],
+                              total_issued: Optional[float] = None
+                              ) -> CreditBook:
+    """A ``CreditBook`` from miner balances; ``total_issued`` defaults to
+    their sum."""
+    book = CreditBook(balances={int(k): float(v)
+                                for k, v in balances.items()})
+    book.total_issued = (float(total_issued) if total_issued is not None
+                         else sum(book.balances.values()))
+    return book

@@ -1,0 +1,141 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process per
+source, all started together), linked into one shared library with a plain
+C interface, and loaded with ``ctypes``. The build runs at first use, into
+``build/repro_torch_kernels/`` at the root of the checkout, and is reused
+while the sources and flags stay the same. Nothing is built on import: the
+CPU tests import every module on a machine with no ``nvcc``.
+
+The kernels take 32-bit words as int32 buffers (read as ``uint32_t`` in C);
+the port keeps words in int64 tensors masked to 32 bits. ``to_i32`` and
+``from_i32`` convert explicitly at that boundary, so words at or above 2**31
+keep their bits.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List, Tuple
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              *ARCH]
+
+
+def to_i32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) -> int32 tensor holding the same 32 bits."""
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def from_i32(x: torch.Tensor) -> torch.Tensor:
+    """int32 tensor read as uint32 -> int64 words in [0, 2**32)."""
+    return x.to(torch.int64) & MASK32
+
+
+def _nvcc() -> str:
+    home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+    if (home / "bin" / "nvcc").exists():
+        return str(home / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _tag(sources: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Tuple[Path, str]:
+    """Compile and link ``csrc/*.cu``; returns (library path, nvcc log).
+
+    The log holds ``-Xptxas -v``'s register and spill counts per kernel."""
+    cu = sorted(CSRC.glob("*.cu"))
+    tag = _tag(cu + sorted(CSRC.glob("*.cuh")))
+    lib = BUILD_DIR / f"libpnp_kernels_{tag}.so"
+    log = BUILD_DIR / f"libpnp_kernels_{tag}.log"
+    if lib.exists() and log.exists():
+        return lib, log.read_text()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        texts = []
+        try:
+            for src, proc in zip(cu, procs):
+                out, _ = proc.communicate()
+                texts.append(f"== {src.name}\n{out}")
+                if proc.returncode:
+                    raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        text = "\n".join(texts)
+        log.write_text(text)
+        os.replace(tmp_lib, lib)
+    return lib, text
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.pnp_sha256_rows.argtypes = [vp, i64, i32, vp, vp, vp]
+    lib.pnp_sha256_rows.restype = ctypes.c_int
+    lib.pnp_merkle_level.argtypes = [vp, i64, i64, vp, vp]
+    lib.pnp_merkle_level.restype = ctypes.c_int
+    return lib
+
+
+def check_cuda_words(name: str, t: torch.Tensor, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous int64 word tensor on a CUDA card."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int64:
+        raise TypeError(f"{name}: expected int64 words, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")

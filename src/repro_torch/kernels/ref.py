@@ -1,0 +1,95 @@
+"""Plain PyTorch SHA-256: the version the CUDA kernels are held against.
+
+32-bit words live in int64 tensors masked to 32 bits after every operation
+that can carry past them (``+``, ``<<``); ``~x`` is written ``x ^ MASK32``.
+These functions run on any device. ``sha256_words_hashlib`` is the ground
+truth both are checked against.
+"""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.native import MASK32
+
+_K = np.array([
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
+    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
+    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
+    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2], dtype=np.uint32)
+
+_H0 = np.array([
+    0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+    0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19], dtype=np.uint32)
+
+
+def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x >> n) | (x << (32 - n))) & MASK32
+
+
+def bswap32(x: torch.Tensor) -> torch.Tensor:
+    """Byte-swap each 32-bit word (little-endian words -> big-endian)."""
+    return (((x << 24) & 0xFF000000) | ((x & 0xFF00) << 8)
+            | ((x >> 8) & 0xFF00) | (x >> 24))
+
+
+def sha256_pad_words(msg: torch.Tensor) -> torch.Tensor:
+    """msg: (N, W) words -> padded blocks (N, nb*16) per FIPS 180-4.
+
+    The message is the big-endian serialization of the W words."""
+    n, w = msg.shape
+    bit_len = w * 32
+    nb = (bit_len + 1 + 64 + 511) // 512
+    pad = torch.zeros((n, nb * 16 - w), dtype=torch.int64, device=msg.device)
+    pad[:, 0] = 0x80000000
+    pad[:, -1] = bit_len & MASK32
+    pad[:, -2] = bit_len >> 32
+    return torch.cat([msg.to(torch.int64), pad], dim=1)
+
+
+def sha256_compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """state: (N, 8) words; block: (N, 16) words -> (N, 8)."""
+    w = list(block.unbind(1))
+    for t in range(16, 64):
+        s0 = _rotr(w[t - 15], 7) ^ _rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
+        s1 = _rotr(w[t - 2], 17) ^ _rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & MASK32)
+    a, b, c, d, e, f, g, h = state.unbind(1)
+    for t in range(64):
+        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ ((e ^ MASK32) & g)
+        t1 = (h + s1 + ch + int(_K[t]) + w[t]) & MASK32
+        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        a, b, c, d, e, f, g, h = ((t1 + s0 + maj) & MASK32, a, b, c,
+                                  (d + t1) & MASK32, e, f, g)
+    return (state + torch.stack([a, b, c, d, e, f, g, h], dim=1)) & MASK32
+
+
+def sha256_words_ref(msg: torch.Tensor) -> torch.Tensor:
+    """msg: (N, W) words -> digest words (N, 8)."""
+    padded = sha256_pad_words(msg)
+    n = msg.shape[0]
+    state = torch.as_tensor(_H0.astype(np.int64), device=msg.device) \
+        .expand(n, 8)
+    for b in range(padded.shape[1] // 16):
+        state = sha256_compress(state, padded[:, b * 16:(b + 1) * 16])
+    return state
+
+
+def sha256_words_hashlib(msg: np.ndarray) -> np.ndarray:
+    """Ground truth via hashlib: (N, W) words -> (N, 8) uint32 digests."""
+    out = np.zeros((msg.shape[0], 8), np.uint32)
+    for i, row in enumerate(np.asarray(msg, np.uint32)):
+        dig = hashlib.sha256(row.astype(">u4").tobytes()).digest()
+        out[i] = np.frombuffer(dig, ">u4")
+    return out
