@@ -6,16 +6,24 @@
 On one CUDA card it:
   1. reports the card, its power limit and the software, and builds the
      hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
-  2. holds each kernel against its plain PyTorch version on the card (exact
-     equality: all of it is integer work) and against hashlib, and times
-     kernel and plain version at the main path's shapes;
-  3. drives the main path through ``Node`` at full size: a collatz jash
+  2. holds each kernel against its plain PyTorch version on the card: the
+     hash kernels exactly (integer work) and against hashlib, flash
+     attention within 2e-4 (float32) and 2e-2 (bfloat16) over head dims,
+     GQA groups, causal or not and ragged lengths; then times kernels,
+     plain versions and, for attention, PyTorch's SDPA as a yardstick, at
+     the main paths' shapes;
+  3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
      then the node's own audit of its chain;
   4. runs a 2-node ``Network`` to convergence;
-  5. checks the kernels' launch counts from the main path and that the
-     verifier's hashlib fallback never fired.
+  5. serves qwen3-0.6b at full width through ``repro_torch.launch.serve``
+     (batch 8, prompt 2048, 32 new tokens, bf16, random weights from a
+     fixed seed) and holds the first and last layers' attention against
+     the plain version; a reduced float32 model served on the card and on
+     the CPU must agree;
+  6. checks each kernel's launch count from its own path and that the
+     verifier's hashlib fallback never fired, and prints the kernel table.
 Each phase prints one JSON line. The last line is the result. Any failure
 raises and exits non-zero; without a card the script exits non-zero before
 printing any result.
@@ -50,6 +58,13 @@ WORD_BYTES = 4      # a word is 32 bits, whatever the tensor holding it
 # pipe as IMAD, so the 64 INT32 lanes of an SM are not the limit.
 HBM_BYTES_S = 3.35e12
 ISSUE_OPS_S = 132 * 128 * 1.98e9
+# dense bf16 tensor-core peak (data sheet): the peak rate for attention's
+# bf16 inputs, whichever units a kernel uses
+BF16_FLOPS_S = 989e12
+
+# serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 MAIN_BITS = 20
 
@@ -69,6 +84,37 @@ def bound_ms(nbytes: float, ops: float):
         "operations"
 
 
+def kernel_name(mangled: str) -> str:
+    """A readable name for a kernel's mangled symbol: the function and its
+    template arguments."""
+    import re
+    found = re.search(r"(sha256_rows_kernel|merkle_level_kernel|"
+                      r"flash_fwd_kernel)", mangled)
+    check(found is not None, f"known kernel name in {mangled}")
+    name = found[1]
+    flags = re.search(r"ILb(\d)ELb(\d)E", mangled)
+    if flags:
+        name += f"<raw={flags[1]},bswap={flags[2]}>"
+    targs = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if targs:
+        name += f"<{'f32' if targs[1] == 'f' else 'bf16'},hd={targs[2]}>"
+    return name
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, barriers and spills of each kernel, from ``-Xptxas -v``."""
+    import re
+    usage, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = kernel_name(entry[1])
+        elif name and ("registers" in line or "spill" in line):
+            usage.setdefault(name, []).append(
+                line.split(":", 1)[-1].strip())
+    return usage
+
+
 def sass_counts(lib: Path) -> dict:
     """Instructions of each kernel in the built library, read from its SASS
     with cuobjdump (the SASS is kept beside the library): the total, without
@@ -85,12 +131,9 @@ def sass_counts(lib: Path) -> dict:
     lib.with_suffix(".sass").write_text(text)
     ops, name = {}, None
     for line in text.splitlines():
-        func = re.match(r"\s*Function : _Z(\d+)(\S+)", line)
-        if func:      # a mangled name: the identifier's length, then it
-            name = func[2][:int(func[1])]
-            flags = re.search(r"ILb(\d)ELb(\d)E", func[2])
-            if flags:
-                name += f"<raw={flags[1]},bswap={flags[2]}>"
+        func = re.match(r"\s*Function : (\S+)", line)
+        if func:
+            name = kernel_name(func[1])
             ops[name] = {}
             continue
         insn = re.match(
@@ -98,11 +141,218 @@ def sass_counts(lib: Path) -> dict:
             line)
         if insn and name and insn[1] != "NOP":
             ops[name][insn[1]] = ops[name].get(insn[1], 0) + 1
-    check(len(ops) == 4, f"four kernels in the library, found {list(ops)}")
+    check(len(ops) == 10, f"ten kernels in the library, found {list(ops)}")
     return {name: {"instructions": sum(c.values()),
                    "opcodes": {k: v for k, v in sorted(
                        c.items(), key=lambda kv: -kv[1]) if v >= 8}}
             for name, c in ops.items()}
+
+
+def cuda_ms(fn, reps=10):
+    """Median of ``reps`` timed calls, CUDA events, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def flash_vs_plain(dev) -> dict:
+    """The flash kernel against its plain version: head dims 32, 64, 128;
+    GQA groups 1 and 2; causal and not; S = T in {33, 1000, 2048} and
+    S != T; float32 and bfloat16; and the large equal-score case."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(20261)
+    cases = [(hd, g, causal, n, n) for hd in (32, 64, 128) for g in (1, 2)
+             for causal in (True, False) for n in (33, 1000, 2048)]
+    cases += [(hd, 2, False, 700, 1500) for hd in (32, 64, 128)]
+    max_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol, worst = FLASH_TOL[name], 0.0
+        for hd, g, causal, n_q, n_k in cases:
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+            q, k, v = randn(2, n_q, 2 * g, hd), randn(2, n_k, 2, hd), \
+                randn(2, n_k, 2, hd)
+            got = flash_attention_cuda(q, k, v, causal=causal).float()
+            want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+            worst = max(worst, float((got - want).abs().max()))
+            check(torch.allclose(got, want, rtol=tol, atol=tol),
+                  f"flash {name} hd={hd} G={g} causal={causal} S={n_q} "
+                  f"T={n_k} vs plain")
+        max_err[name] = worst
+    q = torch.full((1, 32, 1, 32), 30.0, device=dev)
+    out = flash_attention_cuda(q, q.clone(), torch.ones_like(q), causal=True)
+    check(bool(torch.isfinite(out).all()) and torch.allclose(
+        out, torch.ones_like(out), rtol=1e-5, atol=0),
+        "flash large equal scores give 1")
+    return {"cases": 2 * len(cases) + 1, "max_abs_err": max_err,
+            "tolerance": FLASH_TOL, "stability_equal_scores": True}
+
+
+def flash_times(dev) -> dict:
+    """Kernel, plain version and SDPA (the yardstick, never on the path)
+    at the serve shape, and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    B, S, H, Kv, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(20262)
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, S, Kv, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, S, Kv, hd, generator=gen, device=dev).bfloat16()
+    out = flash_attention_cuda(q, k, v, causal=True)
+    check(torch.equal(out, flash_attention_cuda(q, k, v, causal=True)),
+          "flash kernel equal from run to run")
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    check(torch.allclose(sdpa().transpose(1, 2).float(), out.float(),
+                         rtol=2e-2, atol=2e-2), "SDPA agrees with the kernel")
+    library_ms = cuda_ms(sdpa)
+    # 4 hd flops per (query, key) pair (QK^T and PV, an FMA as two), over
+    # the S (S + 1) / 2 causal pairs of each (b, h), at the bf16 peak; the
+    # bytes of q, k, v and out, each once, at the HBM rate
+    pairs = S * (S + 1) // 2
+    flops = 4 * hd * pairs * B * H
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
+    return {"shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_arithmetic": f"max({flops:.4g} flops / 989e12, "
+                                f"{nbytes:.4g} B / 3.35e12) = "
+                                f"max({t_ops * 1e3:.4g}, "
+                                f"{t_bytes * 1e3:.4g}) ms",
+            "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+
+
+def serve_phase(dev) -> dict:
+    """The serving path at full width through ``repro_torch.launch.serve``,
+    with the launch counts read around it; then a warm run timed, with the
+    attention launches of its prefill timed by CUDA events; then a reduced
+    float32 model served on the card and on the CPU from the same
+    weights."""
+    import torch
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels import flash_attention, merkle, ops, ref, sha256
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("qwen3-0.6b")
+    real = ops.flash_attention
+    seen = []     # (q, k, v, out) of the first and the latest layer
+
+    def recording(q, k, v, *, causal):
+        out = real(q, k, v, causal=causal)
+        seen[1 if seen else 0:] = [(q, k, v, out)]   # keep first, last
+        return out
+
+    argv = ["--arch", cfg.name, "--reduced", "0", "--batch",
+            str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
+            "--new-tokens", str(SERVE_NEW)]
+    ops.flash_attention = recording
+    sha256.launches = merkle.launches = flash_attention.launches = 0
+    try:
+        res = serve.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = real
+    counts = {"sha256": sha256.launches, "merkle": merkle.launches,
+              "flash_attention": flash_attention.launches}
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"one flash launch per prefill layer, got {counts}")
+    check(res.tokens.shape == (SERVE_BATCH, SERVE_NEW), "generated shape")
+    check(int(res.tokens.min()) >= 0
+          and int(res.tokens.max()) < cfg.vocab_size, "token ids in vocab")
+    check(bool(torch.isfinite(res.last_logits).all()), "logits finite")
+    check(res.last_logits.shape == (SERVE_BATCH, 1, cfg.padded_vocab),
+          "logits shape")
+    layer_err = []
+    for q, k, v, out in seen:
+        want = ref.flash_attention_ref(q, k, v, causal=True).float()
+        layer_err.append(float((out.float() - want).abs().max()))
+        check(torch.allclose(out.float(), want, rtol=FLASH_TOL["bfloat16"],
+                             atol=FLASH_TOL["bfloat16"]),
+              "serve layer attention vs plain")
+        del want
+    check(len(seen) == 2, "first and last layer recorded")
+    del seen[:]
+    first = {"prefill_ms": res.prefill_s * 1e3,
+             "decode_ms_per_token": res.decode_s_per_token * 1e3,
+             "tokens_row0": res.tokens[0].tolist()}
+    del res
+    torch.cuda.empty_cache()
+
+    # warm run: the same serve call, its prefill's attention timed
+    events = []
+
+    def timed(q, k, v, *, causal):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(q, k, v, causal=causal)
+        end.record()
+        events.append((start, end))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention = timed
+    try:
+        warm = serve.serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                           new_tokens=SERVE_NEW, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = real
+    check(warm.tokens[0].tolist() == first["tokens_row0"],
+          "warm run generates the same tokens")
+    check(len(events) == cfg.n_layers, "warm prefill: one launch a layer")
+    timing = {"warm_prefill_ms": warm.prefill_s * 1e3,
+              "warm_attention_ms_in_prefill": sum(
+                  a.elapsed_time(b) for a, b in events),
+              "warm_decode_ms_per_token": warm.decode_s_per_token * 1e3,
+              "warm_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del warm
+    torch.cuda.empty_cache()
+
+    # a small float32 model: the card against the CPU on the same weights
+    small = reduced(cfg)
+    params = build_model(small).init(torch.Generator().manual_seed(1))
+
+    def to(tree, device):
+        return {k: to(v, device) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+    kw = dict(batch=2, prompt_len=100, new_tokens=8, seed=1)
+    on_card = serve.serve(small, device=dev, params=to(params, dev), **kw)
+    on_cpu = serve.serve(small, device="cpu", params=params, **kw)
+    small_err = float((on_card.last_logits.cpu() - on_cpu.last_logits)
+                      .abs().max())
+    check(torch.equal(on_card.tokens.cpu(), on_cpu.tokens),
+          "reduced model: card and CPU tokens equal")
+    check(small_err <= 1e-4, f"reduced model: logits within 1e-4 "
+                             f"({small_err})")
+    return {"phase": "serve", "arch": cfg.name, "batch": SERVE_BATCH,
+            "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+            "dtype": cfg.dtype, "counts": counts, **first, **timing,
+            "layer_attention_max_abs_err": layer_err,
+            "reduced_card_vs_cpu_max_abs_err": small_err}
 
 
 def main() -> int:
@@ -116,7 +366,8 @@ def main() -> int:
     from repro_torch.core import verify
     from repro_torch.core.jash import Jash, JashMeta, collatz_jash
     from repro_torch.core.ledger import merkle_root
-    from repro_torch.kernels import merkle, native, ref, sha256
+    from repro_torch.kernels import flash_attention, merkle, native, ref, \
+        sha256
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20260)
@@ -124,20 +375,6 @@ def main() -> int:
     def words(*shape):
         return torch.randint(0, 2**32, shape, generator=gen, device=dev,
                              dtype=torch.int64)
-
-    def cuda_ms(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
 
     # -- 1. environment and build ------------------------------------------
     smi = subprocess.run(
@@ -149,13 +386,11 @@ def main() -> int:
     lib, log = native.build()
     native.library()
     build_s = time.perf_counter() - t0
-    ptxas = [line.strip() for line in log.splitlines()
-             if "registers" in line or "spill" in line]
     emit({"phase": "environment", "gpu": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": build_s,
-          "ptxas": ptxas, "sass": sass_counts(lib),
+          "ptxas": ptxas_usage(log), "sass": sass_counts(lib),
           "counted_ops": {"compression": OPS_COMPRESSION,
                           "merkle_parent": OPS_COMPRESSION
                           + OPS_PAD_COMPRESSION}})
@@ -224,9 +459,14 @@ def main() -> int:
           "merkle forest kernel vs plain")
     check(merkle.merkle_roots_from_digests(forest, device=dev)
           == [hashlib_root(t) for t in forest], "merkle forest vs hashlib")
+    flash = flash_vs_plain(dev)
+    emit({"phase": "flash_vs_plain", **flash})
+    max_err["flash_attention"] = max(flash["max_abs_err"].values())
     emit({"phase": "kernels_vs_plain", "sha256": sha_rows,
           "merkle": {"leaves": 1 << 22, "root": root_22, "equal": True,
                      "hashlib_2_16": True, "forest": "4 x 2**16"},
+          "flash_attention": {"cases": flash["cases"], "within_tolerance":
+                              True, "tolerance": FLASH_TOL},
           "max_abs_err": max_err})
 
     # timing at the main path's shapes
@@ -265,13 +505,15 @@ def main() -> int:
     merkle_time = {"shape": f"(8, 1, {leaves}) -> width {width}",
                    "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
                    "bound_by": m_by, "nodes_per_s": parents / (m_ms * 1e-3)}
+    flash_time = flash_times(dev)
+    emit({"phase": "flash_times", "gpu": smi, **flash_time})
     emit({"phase": "kernel_times", "gpu": smi, "sha256": sha_times,
-          "merkle": merkle_time})
+          "merkle": merkle_time, "flash_attention": flash_time})
     del digests, rows, top, forest_rows, mrows
     torch.cuda.empty_cache()
 
     # -- 3. the main path at full size -------------------------------------
-    sha256.launches = merkle.launches = 0
+    sha256.launches = merkle.launches = flash_attention.launches = 0
     verify.hashlib_fallbacks = 0
     node = Node(device="cuda", classic_arg_bits=MAIN_BITS)
     # host-clock split of each block into the workload's three steps
@@ -311,6 +553,7 @@ def main() -> int:
     audit_s = time.perf_counter() - t
     torch.cuda.synchronize()
     counts = {"sha256": sha256.launches, "merkle": merkle.launches,
+              "flash_attention": flash_attention.launches,
               "hashlib_fallbacks": verify.hashlib_fallbacks}
 
     full, opt, classic = (r.payload for r in receipts)
@@ -372,9 +615,15 @@ def main() -> int:
           "height": net.heights, "tip": net.tips[0],
           "seconds": time.perf_counter() - t})
 
-    # -- 5. launch counts and the kernel table -------------------------------
+    # -- 5. serving qwen3-0.6b at full width ----------------------------------
+    served = serve_phase(dev)
+    emit(served)
+
+    # -- 6. launch counts and the kernel table -------------------------------
     check(counts["sha256"] > 0 and counts["merkle"] > 0,
-          "both kernels launched on the main path")
+          "both hash kernels launched on the mining path")
+    check(served["counts"]["flash_attention"] > 0,
+          "flash attention launched on the serving path")
     check(counts["hashlib_fallbacks"] == 0, "hashlib fallback never fired")
     chunk = sha_times[0]
     emit({"kernels": [
@@ -393,6 +642,16 @@ def main() -> int:
          "bound_ms": merkle_time["bound_ms"],
          "bound_by": merkle_time["bound_by"], "library_ms": None,
          "shape": merkle_time["shape"], "matched": True},
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:28",
+         "launches": served["counts"]["flash_attention"],
+         "max_abs_err": max_err["flash_attention"],
+         "ms": flash_time["ms"], "plain_ms": flash_time["plain_ms"],
+         "bound_ms": flash_time["bound_ms"],
+         "bound_by": flash_time["bound_by"],
+         "library_ms": flash_time["library_ms"],
+         "shape": flash_time["shape"], "matched": True},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,19 +3,20 @@
 The functions take the reference's state as plain data (JSON text, numpy
 arrays, dicts), never its objects, so this module imports nothing of
 ``repro``. A block mined by either package can then be verified by the
-other.
+other, and a model initialised by either runs the same weights in both.
 """
 from __future__ import annotations
 
 import json
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.executor import FullResult
 from repro_torch.core.ledger import Block, Ledger
 from repro_torch.core.rewards import CreditBook
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve
 
 
 def ledger_from_json(text: str) -> Ledger:
@@ -48,3 +49,23 @@ def credit_book_from_balances(balances: Dict[int, float],
     book.total_issued = (float(total_issued) if total_issued is not None
                          else sum(book.balances.values()))
     return book
+
+
+def _tensor_from_array(arr, device: torch.device) -> torch.Tensor:
+    arr = np.array(arr)         # a writable copy (JAX's buffers are not)
+    if arr.dtype.name == "bfloat16":
+        # numpy holds JAX's bfloat16 as ml_dtypes.bfloat16, which
+        # torch.from_numpy rejects: carry the 16 bits over as they are
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_jax(tree: Dict[str, Any], *,
+                    device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's params (a nested dict of numpy or JAX arrays, e.g.
+    ``repro``'s ``Model.init`` output) as the port's: the same keys,
+    shapes, dtypes and bits, on ``device``."""
+    dev = resolve(device)
+    return {k: params_from_jax(v, device=dev) if isinstance(v, dict)
+            else _tensor_from_array(v, dev) for k, v in tree.items()}

@@ -4,16 +4,26 @@ The port of ``repro/core/authority.py``. Review pipeline:
   1. validate + compile check: ``torch.export`` and the bounded-complexity
      walk of the exported graph (``Jash.validate``)
   2. runtime estimation: "performing runs on random inputs" on the device
-     -> mean/std wall time (first run dropped), plus FLOPs from
-     ``FlopCounterMode``
+     -> mean/std wall time (first run dropped), plus FLOPs counted over
+     the exported graph (``count_flops``)
   3. prioritization: the reference's formula over importance, FLOPs and
      runtime, and a veto flag
   4. publication: one jash per block; when the queue is empty, a
      "Classic" SHA-256 jash is published (§3.4 back-compatibility).
 
-``FlopCounterMode`` counts matrix products and convolutions only, where
-XLA's cost analysis also counts elementwise work, so priorities differ
-from the reference's and two queued jashes may pop in another order.
+FLOPs are counted the way XLA's cost analysis counts them for the
+reference, over the ``torch.export`` graph that validation builds, for the
+example args:
+  - one flop per output element of every arithmetic, compare or select
+    ``aten`` op (``_ELEMENTWISE``), and one per input element of a
+    reduction (``_REDUCTIONS``);
+  - ``2·M·N·K`` for a matrix product (plus one per output element for the
+    bias of ``addmm``, ``baddbmm`` and ``linear``);
+  - the body of a ``scan`` counted once, as XLA counts a loop body once,
+    and the larger branch of a ``cond``;
+  - nothing for views, copies, casts, indexing and tensor creation.
+The priority formula is the reference's, so queued jashes pop in the
+reference's order.
 """
 from __future__ import annotations
 
@@ -24,12 +34,74 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core.jash import Jash, JashMeta
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels.native import MASK32
 from repro_torch.kernels.ops import sha256_words
+
+
+_ELEMENTWISE = frozenset("""
+    abs add sub rsub mul div true_divide floor_divide remainder fmod neg
+    reciprocal pow exp exp2 expm1 log log2 log1p sqrt rsqrt sin cos tan tanh
+    sigmoid silu relu gelu erf sign floor ceil round trunc maximum minimum
+    clamp clamp_min clamp_max bitwise_and bitwise_or bitwise_xor bitwise_not
+    bitwise_left_shift bitwise_right_shift __and__ __or__ __xor__ __lshift__
+    __rshift__ logical_and logical_or logical_xor logical_not eq ne lt le gt
+    ge where masked_fill
+    """.split())
+_REDUCTIONS = frozenset("""
+    sum mean prod amax amin max min argmax argmin any all cumsum cumprod
+    logsumexp _softmax _log_softmax softmax log_softmax
+    """.split())
+# index of the operand whose last dim is the contraction K, and whether
+# a bias adds one flop per output element
+_MATMULS = {"mm": (0, False), "bmm": (0, False), "matmul": (0, False),
+            "mv": (0, False), "dot": (0, False), "addmm": (1, True),
+            "baddbmm": (1, True), "addmv": (1, True), "linear": (0, True)}
+
+
+def _numel(node: torch.fx.Node) -> int:
+    val = node.meta.get("val")
+    if isinstance(val, (tuple, list)):
+        return sum(int(v.numel()) for v in val
+                   if isinstance(v, torch.Tensor))
+    return int(val.numel()) if isinstance(val, torch.Tensor) else 0
+
+
+def count_flops(gm: torch.fx.GraphModule) -> float:
+    """FLOPs of one run of an exported graph, by the rule in the module
+    docstring."""
+    total = 0.0
+    for node in gm.graph.nodes:
+        if node.op != "call_function":
+            continue
+        target = node.target
+        if isinstance(target, torch._ops.HigherOrderOperator):
+            subs = [count_flops(getattr(gm, a.target)) for a in node.args
+                    if isinstance(a, torch.fx.Node) and a.op == "get_attr"
+                    and isinstance(getattr(gm, a.target),
+                                   torch.fx.GraphModule)]
+            total += max(subs, default=0.0)
+            continue
+        if not isinstance(target, torch._ops.OpOverload) \
+                or target.namespace != "aten":
+            continue
+        name = target._schema.name.split("::", 1)[1]
+        if not name.startswith("__"):
+            name = name.rstrip("_")         # in-place forms count the same
+        if name in _MATMULS:
+            operand, bias = _MATMULS[name]
+            k = int(node.args[operand].meta["val"].shape[-1])
+            out = _numel(node)
+            if name == "linear":
+                bias = len(node.args) > 2 and node.args[2] is not None
+            total += 2.0 * out * k + (out if bias else 0)
+        elif name in _ELEMENTWISE:
+            total += _numel(node)
+        elif name in _REDUCTIONS:
+            total += _numel(node.args[0])
+    return total
 
 
 @dataclasses.dataclass
@@ -68,11 +140,8 @@ class RuntimeAuthority:
         """Full §3.3 review.  Raises JashValidationError on hard failures;
         a veto (human criterion) parks the jash without publication."""
         jid = jash.source_id()
-        jash.validate(loop_bound=self.loop_bound)
-
-        with FlopCounterMode(display=False) as counter:
-            jash.fn(*jash.example_args)
-        flops = float(counter.get_total_flops())
+        program = jash.validate(loop_bound=self.loop_bound)
+        flops = count_flops(program.graph_module)
 
         # runtime estimation on random inputs, on the mining device
         times = []

@@ -7,7 +7,7 @@ C interface, and loaded with ``ctypes``. The build runs at first use, into
 while the sources and flags stay the same. Nothing is built on import: the
 CPU tests import every module on a machine with no ``nvcc``.
 
-The kernels take 32-bit words as int32 buffers (read as ``uint32_t`` in C);
+The hash kernels take 32-bit words as int32 buffers (read as ``uint32_t`` in C);
 the port keeps words in int64 tensors masked to 32 bits. ``to_i32`` and
 ``from_i32`` convert explicitly at that boundary, so words at or above 2**31
 keep their bits.
@@ -117,6 +117,9 @@ def library() -> ctypes.CDLL:
     lib.pnp_sha256_rows.restype = ctypes.c_int
     lib.pnp_merkle_level.argtypes = [vp, i64, i64, vp, vp]
     lib.pnp_merkle_level.restype = ctypes.c_int
+    lib.pnp_flash_attention_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,
+                                            i32, i32, i32, i32, i32, vp]
+    lib.pnp_flash_attention_fwd.restype = ctypes.c_int
     return lib
 
 

@@ -1,9 +1,14 @@
-"""Plain PyTorch SHA-256: the version the CUDA kernels are held against.
+"""Plain PyTorch versions the CUDA kernels are held against: SHA-256 and
+flash attention.
 
-32-bit words live in int64 tensors masked to 32 bits after every operation
+SHA-256: 32-bit words live in int64 tensors masked to 32 bits after every operation
 that can carry past them (``+``, ``<<``); ``~x`` is written ``x ^ MASK32``.
 These functions run on any device. ``sha256_words_hashlib`` is the ground
 truth both are checked against.
+
+``flash_attention_ref`` is the function of the reference's Pallas flash
+kernel and of ``repro.models.attention.chunked_attention``, written out
+plainly in float32.
 """
 from __future__ import annotations
 
@@ -93,3 +98,29 @@ def sha256_words_hashlib(msg: np.ndarray) -> np.ndarray:
         dig = hashlib.sha256(row.astype(">u4").tobytes()).digest()
         out[i] = np.frombuffer(dig, ">u4")
     return out
+
+
+# masked scores, as the reference's flash kernel writes them
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, T, Kv, hd) -> (B, S, H, hd) in q's dtype.
+
+    float32 math, scores scaled by 1/sqrt(hd). With ``causal``, query s
+    sees keys t <= s (absolute positions, queries at offset 0). Query head
+    h reads KV head h // (H // Kv)."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    if H % Kv:
+        raise ValueError(f"flash_attention_ref: {H} heads over {Kv} KV heads")
+    g = H // Kv
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), kf) / hd ** 0.5
+    if causal:
+        keep = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", probs, vf).to(q.dtype)

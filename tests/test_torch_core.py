@@ -332,3 +332,68 @@ def test_recompute_roots_falls_back_to_hashlib_and_counts(monkeypatch):
     assert verify.recompute_roots_batched([full], device=CPU) == \
         [full.commit_root()]
     assert verify.hashlib_fallbacks == before + 1
+
+
+# --------------------------------------------------------------------------
+# the Runtime Authority's FLOP count and queue order
+# --------------------------------------------------------------------------
+
+MM = 32          # the matrix jash's (MM, MM) @ (MM, MM) product
+
+
+def _matrix_pair(importance):
+    """The same jash in both packages: a (MM, MM) matrix made from the arg,
+    times its transpose, summed to one word."""
+    def jfn(arg):
+        a = (arg & 255).astype(jnp.float32) + jnp.arange(
+            MM * MM, dtype=jnp.float32).reshape(MM, MM)
+        return (a @ a.T).sum().astype(jnp.uint32)
+
+    def tfn(args):
+        a = (args & 255).float()[:, None, None] + torch.arange(
+            MM * MM, dtype=torch.float32).reshape(1, MM, MM)
+        out = torch.matmul(a, a.transpose(1, 2)).sum(dim=(1, 2))
+        return out.to(torch.int64) & MASK32
+
+    meta = dict(arg_bits=6, res_bits=32, importance=importance)
+    return (jjash.Jash("matrix", jfn, jjash.JashMeta(**meta),
+                       example_args=(jnp.uint32(3),)),
+            jash.Jash("matrix", tfn, jash.JashMeta(**meta),
+                      example_args=(torch.tensor([3], dtype=torch.int64),)))
+
+
+@pytest.mark.parametrize("max_steps", [64, 1024])
+def test_flops_estimate_of_collatz_is_within_2x_of_reference(max_steps):
+    jj, tj = _pair(max_steps=max_steps)
+    want = jauth.RuntimeAuthority(runtime_probe_n=2).submit(jj).flops_estimate
+    got = authority.RuntimeAuthority(device=CPU, runtime_probe_n=2).submit(
+        tj).flops_estimate
+    assert want > 0 and want / 2 <= got <= 2 * want, (got, want)
+    # a loop body counts once, at any bound
+    assert got == authority.count_flops(
+        jash.collatz_jash(8).validate().graph_module)
+
+
+def test_flops_estimate_counts_matrix_products_and_elementwise_work():
+    _, tj = _matrix_pair(0.5)
+    got = authority.count_flops(tj.validate().graph_module)
+    # 2·M·N·K for the product; one per element for the `&`, the add of
+    # the arange (M·K), the final `&`; one per summed element (M·N)
+    assert got == 2 * MM * MM * MM + 1 + MM * MM + MM * MM + 1
+
+
+def test_queue_pops_in_the_reference_order():
+    """Collatz (no matrix product, low importance) against the matrix jash
+    (important): the reference publishes the matrix jash first, by a
+    margin of at least 4x in priority, and so must the port."""
+    jc, tc = _pair(max_steps=64, importance=0.01)
+    jm, tm = _matrix_pair(0.9)
+    jra = jauth.RuntimeAuthority()
+    ra = authority.RuntimeAuthority(device=CPU)
+    jprio = {j.name: jra.submit(j).priority for j in (jc, jm)}
+    prio = {j.name: ra.submit(j).priority for j in (tc, tm)}
+    hi, lo = sorted(jprio, key=jprio.get, reverse=True)
+    assert jprio[hi] >= 4 * jprio[lo], jprio
+    assert prio[hi] > prio[lo], prio
+    assert [jra.publish_next()[0].name for _ in range(2)] == [hi, lo]
+    assert [ra.publish_next()[0].name for _ in range(2)] == [hi, lo]
