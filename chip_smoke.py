@@ -8,20 +8,26 @@ On one CUDA card it:
      hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
   2. holds each kernel against its plain PyTorch version on the card: the
      hash kernels exactly (integer work) and against hashlib, flash
-     attention within 2e-4 (float32) and 2e-2 (bfloat16) over head dims,
-     GQA groups, causal or not and ragged lengths; then times kernels,
-     plain versions and, for attention, PyTorch's SDPA as a yardstick, at
-     the main paths' shapes;
+     attention within 2e-4 (float32) and 2e-2 (bfloat16) over head dims
+     32-256, GQA and MQA groups, causal or not, local windows and ragged
+     lengths (and in float32 at recurrentgemma's served prefill shape),
+     the decay scan within 1e-5 and WKV-6 within 1e-4 (relative
+     plus absolute); then times kernels, plain versions and, for
+     attention, PyTorch's SDPA as a yardstick, at the main paths' shapes;
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
      then the node's own audit of its chain;
   4. runs a 2-node ``Network`` to convergence;
-  5. serves qwen3-0.6b at full width through ``repro_torch.launch.serve``
-     (batch 8, prompt 2048, 32 new tokens, bf16, random weights from a
-     fixed seed) and holds the first and last layers' attention against
-     the plain version; a reduced float32 model served on the card and on
-     the CPU must agree;
+  5. serves three models at full width and depth through
+     ``repro_torch.launch.serve`` (batch 8, 32 new tokens, bf16, random
+     weights from a fixed seed): qwen3-0.6b (prompt 2048; flash attention),
+     rwkv6-7b (prompt 2048; WKV-6 in prefill and decode) and
+     recurrentgemma-2b (prompt 4096; decay scan and windowed flash
+     attention). Each path's launch counts must equal its layer counts,
+     its first and last launch of each kernel must equal the plain
+     version on the same inputs, and a reduced float32 model served on
+     the card and on the CPU must agree;
   6. checks each kernel's launch count from its own path and that the
      verifier's hashlib fallback never fired, and prints the kernel table.
 Each phase prints one JSON line. The last line is the result. Any failure
@@ -61,10 +67,21 @@ ISSUE_OPS_S = 132 * 128 * 1.98e9
 # dense bf16 tensor-core peak (data sheet): the peak rate for attention's
 # bf16 inputs, whichever units a kernel uses
 BF16_FLOPS_S = 989e12
+# float32 outside the tensor cores (data sheet): the recurrences' rate
+F32_FLOPS_S = 67e12
+# instantiations in the library: SHA-256 3 (raw/bswap), Merkle 1, flash
+# 4 head dims x 2 dtypes, WKV-6 5 row counts x 2 dtypes, decay scan 1
+N_KERNEL_INSTANCES = 3 + 1 + 8 + 10 + 1
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+# rwkv6-7b serves the same batch and prompt; recurrentgemma-2b a prompt of
+# 4096, twice its local window, so the window mask and the ring-cache roll
+# both run at full width
+RWKV_PROMPT, RG_PROMPT = 2048, 4096
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# relative plus absolute, float32 state and sums in both versions
+DECAY_TOL, WKV_TOL = 1e-5, 1e-4
 
 MAIN_BITS = 20
 
@@ -89,7 +106,8 @@ def kernel_name(mangled: str) -> str:
     template arguments."""
     import re
     found = re.search(r"(sha256_rows_kernel|merkle_level_kernel|"
-                      r"flash_fwd_kernel)", mangled)
+                      r"flash_fwd_kernel|wkv6_kernel|decay_scan_kernel)",
+                      mangled)
     check(found is not None, f"known kernel name in {mangled}")
     name = found[1]
     flags = re.search(r"ILb(\d)ELb(\d)E", mangled)
@@ -97,7 +115,8 @@ def kernel_name(mangled: str) -> str:
         name += f"<raw={flags[1]},bswap={flags[2]}>"
     targs = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E", mangled)
     if targs:
-        name += f"<{'f32' if targs[1] == 'f' else 'bf16'},hd={targs[2]}>"
+        size = "kpt" if name == "wkv6_kernel" else "hd"
+        name += f"<{'f32' if targs[1] == 'f' else 'bf16'},{size}={targs[2]}>"
     return name
 
 
@@ -141,7 +160,8 @@ def sass_counts(lib: Path) -> dict:
             line)
         if insn and name and insn[1] != "NOP":
             ops[name][insn[1]] = ops[name].get(insn[1], 0) + 1
-    check(len(ops) == 10, f"ten kernels in the library, found {list(ops)}")
+    check(len(ops) == N_KERNEL_INSTANCES,
+          f"{N_KERNEL_INSTANCES} kernels in the library, found {list(ops)}")
     return {name: {"instructions": sum(c.values()),
                    "opcodes": {k: v for k, v in sorted(
                        c.items(), key=lambda kv: -kv[1]) if v >= 8}}
@@ -244,96 +264,413 @@ def flash_times(dev) -> dict:
             "tflops_per_s": flops / (ms * 1e-3) / 1e12}
 
 
-def serve_phase(dev) -> dict:
-    """The serving path at full width through ``repro_torch.launch.serve``,
-    with the launch counts read around it; then a warm run timed, with the
-    attention launches of its prefill timed by CUDA events; then a reduced
-    float32 model served on the card and on the CPU from the same
-    weights."""
+def flash_window_vs_plain(dev) -> dict:
+    """The flash kernel's local window at recurrentgemma's head shape (hd
+    256, ten query heads over one KV head): window 0, 64 and 2048, ragged
+    S = T in {33, 1000, 2500} at batch 2, float32 and bfloat16; and the
+    served prefill's own shape (batch 8, S = T 4096, window 2048) in
+    float32, where the tolerance is small against the outputs."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(20263)
+    worst = {}
+    cases = [(2, w, n) for w in (0, 64, 2048) for n in (33, 1000, 2500)]
+    served = (SERVE_BATCH, 2048, RG_PROMPT)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol, worst[name] = FLASH_TOL[name], 0.0
+        for batch, window, n in cases + [served] * (dtype == torch.float32):
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+            q, k, v = randn(batch, n, 10, 256), randn(batch, n, 1, 256), \
+                randn(batch, n, 1, 256)
+            got = flash_attention_cuda(q, k, v, causal=True,
+                                       window=window).float()
+            want = ref.flash_attention_ref(q, k, v, causal=True,
+                                           window=window).float()
+            worst[name] = max(worst[name], float((got - want).abs().max()))
+            check(torch.allclose(got, want, rtol=tol, atol=tol),
+                  f"flash {name} hd=256 G=10 B={batch} window={window} "
+                  f"S=T={n} vs plain")
+            if (batch, window, n) == served:
+                served_err = float((got - want).abs().max())
+                served_rms = float(want.square().mean().sqrt())
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+    return {"cases": 2 * len(cases) + 1, "max_abs_err": worst,
+            "tolerance": FLASH_TOL,
+            "served_shape_float32": {
+                "shape": f"B={served[0]} S=T={served[2]} H=10 Kv=1 hd=256 "
+                         f"window={served[1]}",
+                "max_abs_err": served_err, "rms_of_plain": served_rms}}
+
+
+def decay_vs_plain(dev) -> dict:
+    """The decay-scan kernel against its plain version: C in {1, 129,
+    2560}, S in {1, 37, 4096}, with and without h0, and a chunked call
+    equal to a whole one."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decay_scan import decay_scan_cuda
+    gen = torch.Generator(device=dev).manual_seed(20264)
+    worst, n = 0.0, 0
+    for c in (1, 129, 2560):
+        for steps in (1, 37, 4096):
+            a = torch.rand((2, steps, c), generator=gen, device=dev) * 0.7 \
+                + 0.3
+            b = torch.randn((2, steps, c), generator=gen, device=dev)
+            for h0 in (torch.randn((2, c), generator=gen, device=dev), None):
+                got, last = decay_scan_cuda(a, b, h0)
+                want = ref.decay_scan_ref(a, b, h0)
+                worst = max(worst, float((got - want).abs().max()))
+                check(torch.allclose(got, want, rtol=DECAY_TOL,
+                                     atol=DECAY_TOL)
+                      and torch.allclose(last, want[:, -1], rtol=DECAY_TOL,
+                                         atol=DECAY_TOL),
+                      f"decay scan C={c} S={steps} h0={h0 is not None} "
+                      "vs plain")
+                n += 1
+    a = torch.rand((3, 300, 2560), generator=gen, device=dev) * 0.7 + 0.3
+    b = torch.randn((3, 300, 2560), generator=gen, device=dev)
+    h0 = torch.randn((3, 2560), generator=gen, device=dev)
+    whole, whole_last = ops.decay_scan(a, b, h0)
+    parts, parts_last = ops.decay_scan(a, b, h0, seq_chunk=64)
+    check(torch.allclose(parts, whole, rtol=DECAY_TOL, atol=DECAY_TOL)
+          and torch.allclose(parts_last, whole_last, rtol=DECAY_TOL,
+                             atol=DECAY_TOL), "decay scan chunked = whole")
+    return {"cases": n + 1, "max_abs_err": worst, "tolerance": DECAY_TOL}
+
+
+def _wkv_inputs(shape, dtype, gen, dev):
+    import torch
+    B, S, H, K, V = shape
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+    r, k, v = randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, V)
+    w = torch.sigmoid(randn(B, S, H, K)) * 0.5 + 0.5
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, randn(H, K),
+            randn(B, H, K, V))
+
+
+def wkv_vs_plain(dev) -> dict:
+    """The WKV-6 kernel against its plain version: tests/test_kernels.py's
+    TestWkv6 shapes and the serve head (B 8, H 64, K = V = 64) at S 64,
+    float32 and bfloat16 r, k, v, with and without s0; S = 1 launches in a
+    row equal one launch over S."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    gen = torch.Generator(device=dev).manual_seed(20265)
+    shapes = [(1, 5, 1, 4, 4), (2, 19, 3, 8, 8), (1, 33, 2, 16, 16),
+              (8, 64, 64, 64, 64)]
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            r, k, v, w, u, s0 = _wkv_inputs(shape, dtype, gen, dev)
+            for start in (s0, None):
+                out, s_final = wkv6_cuda(r, k, v, w, u, start)
+                want_o, want_s = ref.wkv6_ref(r, k, v, w, u, start)
+                worst = max(worst, float((out - want_o).abs().max()),
+                            float((s_final - want_s).abs().max()))
+                check(torch.allclose(out, want_o, rtol=WKV_TOL, atol=WKV_TOL)
+                      and torch.allclose(s_final, want_s, rtol=WKV_TOL,
+                                         atol=WKV_TOL),
+                      f"wkv6 {dtype} {shape} s0={start is not None} "
+                      "vs plain")
+                n += 1
+    r, k, v, w, u, s0 = _wkv_inputs((8, 64, 64, 64, 64), torch.bfloat16,
+                                    gen, dev)
+    whole, whole_s = wkv6_cuda(r, k, v, w, u, s0)
+    state, outs = s0, []
+    for t in range(r.shape[1]):
+        o, state = wkv6_cuda(*(x[:, t:t + 1].contiguous()
+                               for x in (r, k, v, w)), u, state)
+        outs.append(o)
+    check(torch.allclose(torch.cat(outs, 1), whole, rtol=WKV_TOL,
+                         atol=WKV_TOL)
+          and torch.allclose(state, whole_s, rtol=WKV_TOL, atol=WKV_TOL),
+          "wkv6: 64 launches of S = 1 equal one of S = 64")
+    return {"cases": n + 1, "max_abs_err": worst, "tolerance": WKV_TOL}
+
+
+def recurrent_times(dev) -> dict:
+    """The decay scan, WKV-6 and windowed flash kernels, their plain
+    versions and (flash) SDPA, at the shapes the serving paths give them,
+    with each bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decay_scan import decay_scan_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    gen = torch.Generator(device=dev).manual_seed(20266)
+    out = {}
+
+    # decay scan: recurrentgemma's prefill, (8, 4096, 2560) from h0
+    B, S, C = SERVE_BATCH, RG_PROMPT, 2560
+    a = torch.rand((B, S, C), generator=gen, device=dev) * 0.7 + 0.3
+    b = torch.randn((B, S, C), generator=gen, device=dev)
+    h0 = torch.randn((B, C), generator=gen, device=dev)
+    ms = cuda_ms(lambda: decay_scan_cuda(a, b, h0))
+    plain_ms = cuda_ms(lambda: ref.decay_scan_ref(a, b, h0), reps=3)
+    # a, b read and h written once (float32), h0 read and h_last written;
+    # one FMA (2 flops) per element
+    nbytes = 4 * (3 * a.numel() + 2 * h0.numel())
+    flops = 2 * a.numel()
+    bnd, by = max(nbytes / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3, \
+        "bytes" if nbytes / HBM_BYTES_S > flops / F32_FLOPS_S else \
+        "operations"
+    out["decay_scan"] = {
+        "shape": f"B={B} S={S} C={C} float32, h0", "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None,
+        "bound_arithmetic": f"max({nbytes:.4g} B / 3.35e12, {flops:.4g} "
+                            "flops / 67e12)",
+        "gb_per_s": nbytes / (ms * 1e-3) / 1e9}
+    del a, b, h0
+
+    # WKV-6: rwkv6-7b's prefill, r, k, v in bf16 and w in float32 as the
+    # time mix makes them, from a state
+    B, S, H, K, V = SERVE_BATCH, RWKV_PROMPT, 64, 64, 64
+    r, k, v, w, u, s0 = _wkv_inputs((B, S, H, K, V), torch.bfloat16, gen,
+                                    dev)
+    ms = cuda_ms(lambda: wkv6_cuda(r, k, v, w, u, s0))
+    plain_ms = cuda_ms(lambda: ref.wkv6_ref(r, k, v, w, u, s0), reps=3)
+    # bytes: r, k, v (bf16), w (f32) read and o (f32) written once, u, s0
+    # read and s_final written. flops the function needs, per step: per
+    # (k, v) k v, the FMA w S + k v and the FMA r S (5); per k u k and the
+    # FMA of r . (u k) (3); per v the FMA that adds (r . (u k)) v (2). The
+    # kernel as written does 7 per (k, v) (u k v folded into each state
+    # value) and 3 per v (the adds of its four partial sums).
+    nbytes = 2 * (r.numel() + k.numel() + v.numel()) + 4 * w.numel() \
+        + 4 * B * S * H * V + 4 * (u.numel() + 2 * s0.numel())
+    flops = B * H * S * (5 * K * V + 3 * K + 2 * V)
+    flops_as_written = B * H * S * (7 * K * V + 3 * V)
+    t_b, t_o = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    dec_r, dec_k, dec_v, dec_w = (x[:, :1].contiguous() for x in (r, k, v, w))
+    decode_ms = cuda_ms(lambda: wkv6_cuda(dec_r, dec_k, dec_v, dec_w, u, s0))
+    out["wkv6"] = {
+        "shape": f"B={B} S={S} H={H} K=V={K}, r/k/v bf16, w float32, s0",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_b, t_o) * 1e3,
+        "bound_by": "bytes" if t_b > t_o else "operations",
+        "library_ms": None,
+        "bound_arithmetic": f"max({nbytes:.4g} B / 3.35e12, {flops:.4g} "
+                            f"flops / 67e12) = max({t_b * 1e3:.4g}, "
+                            f"{t_o * 1e3:.4g}) ms",
+        "tflops_per_s": flops / (ms * 1e-3) / 1e12,
+        "kernel_flops_as_written": flops_as_written,
+        "decode_step_ms": decode_ms}
+    del r, k, v, w, u, s0
+
+    # flash: recurrentgemma's prefill, window 2048, MQA, hd 256, bf16
+    B, S, H, Kv, hd, window = SERVE_BATCH, RG_PROMPT, 10, 1, 256, 2048
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, S, Kv, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, S, Kv, hd, generator=gen, device=dev).bfloat16()
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
+                                              window=window))
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, window=window), reps=3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & \
+        (pos[None, :] > pos[:, None] - window)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+    check(torch.allclose(sdpa().transpose(1, 2).float(), got.float(),
+                         rtol=2e-2, atol=2e-2),
+          "SDPA agrees with the windowed kernel")
+    library_ms = cuda_ms(sdpa)
+    pairs = int(band.sum())
+    flops = 4 * hd * pairs * B * H
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_o, t_b = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
+    out["flash_attention_rg"] = {
+        "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal "
+                 f"window={window}",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "(boolean band mask, enable_gqa)",
+        "bound_ms": max(t_o, t_b) * 1e3,
+        "bound_by": "operations" if t_o > t_b else "bytes",
+        "pairs_per_bh": pairs,
+        "bound_arithmetic": f"max({flops:.4g} flops / 989e12, "
+                            f"{nbytes:.4g} B / 3.35e12) = "
+                            f"max({t_o * 1e3:.4g}, {t_b * 1e3:.4g}) ms",
+        "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+    return out
+
+
+# The kernels a serving path may launch: the name of their entry in
+# ``kernels.ops`` and, where the model overwrites one of its arguments in
+# place after the call (a recurrent state in the cache), that argument's
+# index, so a recorded launch keeps the value it was given.
+SERVE_KERNELS = {"flash_attention": None, "wkv6": 5, "decay_scan": 2}
+
+
+def _launch_counters():
+    from repro_torch.kernels import (decay_scan, flash_attention, merkle,
+                                     sha256, wkv6)
+    return {"sha256": sha256, "merkle": merkle,
+            "flash_attention": flash_attention, "wkv6": wkv6,
+            "decay_scan": decay_scan}
+
+
+def _against_plain(name, args, kw, out) -> float:
+    """A launch recorded on a serving path against the plain version on the
+    same inputs; returns the max abs error, raises past the tolerance."""
+    import torch
+    from repro_torch.kernels import ref
+    if name == "flash_attention":
+        q = args[0]
+        tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+        pairs = [(out, ref.flash_attention_ref(*args, **kw))]
+    elif name == "wkv6":
+        tol, (want_o, want_s) = WKV_TOL, ref.wkv6_ref(*args)
+        pairs = [(out[0], want_o), (out[1], want_s)]
+    else:
+        tol, want = DECAY_TOL, ref.decay_scan_ref(*args)
+        pairs = [(out[0], want), (out[1], want[:, -1])]
+    err = 0.0
+    for got, want in pairs:
+        got, want = got.float(), want.float()
+        err = max(err, float((got - want).abs().max()))
+        check(torch.allclose(got, want, rtol=tol, atol=tol),
+              f"served {name} launch vs plain ({err})")
+    return err
+
+
+def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
+               per_decode: dict, small_layers: int = 0) -> dict:
+    """One serving path at full width and depth through
+    ``repro_torch.launch.serve.main``, with every kernel's launch count
+    read around it and checked against ``per_prefill`` + ``per_decode`` x
+    the decode steps (0 for a kernel not named); the first and last launch
+    of each kernel held against its plain version; then a warm run timed,
+    with the kernels of its prefill timed by CUDA events; then a reduced
+    float32 model (``small_layers`` layers if given) served on the card
+    and on the CPU from the same weights."""
+    import dataclasses
+
     import torch
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.kernels import flash_attention, merkle, ops, ref, sha256
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.model import build_model
 
-    cfg = get_config("qwen3-0.6b")
-    real = ops.flash_attention
-    seen = []     # (q, k, v, out) of the first and the latest layer
+    cfg = get_config(arch)
+    counters = _launch_counters()
+    real = {name: getattr(ops, name) for name in SERVE_KERNELS}
+    seen = {name: [] for name in SERVE_KERNELS}   # first and latest launch
 
-    def recording(q, k, v, *, causal):
-        out = real(q, k, v, causal=causal)
-        seen[1 if seen else 0:] = [(q, k, v, out)]   # keep first, last
-        return out
+    def recording(name):
+        state_at = SERVE_KERNELS[name]
 
-    argv = ["--arch", cfg.name, "--reduced", "0", "--batch",
-            str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
-            "--new-tokens", str(SERVE_NEW)]
-    ops.flash_attention = recording
-    sha256.launches = merkle.launches = flash_attention.launches = 0
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            if state_at is not None and args[state_at] is not None:
+                args = list(args)
+                args[state_at] = args[state_at].clone()
+            kw.pop("seq_chunk", None)
+            slot = 1 if seen[name] else 0
+            seen[name][slot:] = [(tuple(args), kw, out)]
+            return out
+        return call
+
+    def patched(make):
+        for name in SERVE_KERNELS:
+            setattr(ops, name, make(name))
+
+    def restore():
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+    argv = ["--arch", arch, "--reduced", "0", "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(prompt), "--new-tokens", str(SERVE_NEW)]
+    for mod in counters.values():
+        mod.launches = 0
+    patched(recording)
     try:
         res = serve.main(argv)
         torch.cuda.synchronize()
     finally:
-        ops.flash_attention = real
-    counts = {"sha256": sha256.launches, "merkle": merkle.launches,
-              "flash_attention": flash_attention.launches}
-    check(counts["flash_attention"] == cfg.n_layers,
-          f"one flash launch per prefill layer, got {counts}")
+        restore()
+    counts = {name: mod.launches for name, mod in counters.items()}
+    want = {name: per_prefill.get(name, 0)
+            + (SERVE_NEW - 1) * per_decode.get(name, 0) for name in counters}
+    check(counts == want, f"{arch}: launch counts {counts}, expected {want}")
     check(res.tokens.shape == (SERVE_BATCH, SERVE_NEW), "generated shape")
     check(int(res.tokens.min()) >= 0
           and int(res.tokens.max()) < cfg.vocab_size, "token ids in vocab")
     check(bool(torch.isfinite(res.last_logits).all()), "logits finite")
     check(res.last_logits.shape == (SERVE_BATCH, 1, cfg.padded_vocab),
           "logits shape")
-    layer_err = []
-    for q, k, v, out in seen:
-        want = ref.flash_attention_ref(q, k, v, causal=True).float()
-        layer_err.append(float((out.float() - want).abs().max()))
-        check(torch.allclose(out.float(), want, rtol=FLASH_TOL["bfloat16"],
-                             atol=FLASH_TOL["bfloat16"]),
-              "serve layer attention vs plain")
-        del want
-    check(len(seen) == 2, "first and last layer recorded")
-    del seen[:]
+    launch_err = {}
+    for name, calls in seen.items():
+        check(len(calls) == (2 if counts[name] > 1 else counts[name]),
+              f"{arch}: first and last {name} launch recorded")
+        launch_err[name] = [_against_plain(name, *c) for c in calls]
+        torch.cuda.empty_cache()
+    seen.clear()
     first = {"prefill_ms": res.prefill_s * 1e3,
              "decode_ms_per_token": res.decode_s_per_token * 1e3,
              "tokens_row0": res.tokens[0].tolist()}
     del res
     torch.cuda.empty_cache()
 
-    # warm run: the same serve call, its prefill's attention timed
-    events = []
+    # warm run: the same serve call, the kernels of its prefill timed
+    events = {name: [] for name in per_prefill}
 
-    def timed(q, k, v, *, causal):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(q, k, v, causal=causal)
-        end.record()
-        events.append((start, end))
-        return out
+    def timing(name):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*args, **kw)
+            end.record()
+            if name in events:
+                events[name].append((start, end))
+            return out
+        return call
 
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention = timed
+    patched(timing)
     try:
-        warm = serve.serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        warm = serve.serve(cfg, batch=SERVE_BATCH, prompt_len=prompt,
                            new_tokens=SERVE_NEW, device=dev)
         torch.cuda.synchronize()
     finally:
-        ops.flash_attention = real
+        restore()
     check(warm.tokens[0].tolist() == first["tokens_row0"],
-          "warm run generates the same tokens")
-    check(len(events) == cfg.n_layers, "warm prefill: one launch a layer")
-    timing = {"warm_prefill_ms": warm.prefill_s * 1e3,
-              "warm_attention_ms_in_prefill": sum(
-                  a.elapsed_time(b) for a, b in events),
-              "warm_decode_ms_per_token": warm.decode_s_per_token * 1e3,
-              "warm_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del warm
+          f"{arch}: warm run generates the same tokens")
+    # prefill launches come first, then one set per decode step
+    kernel_ms = {name: sum(a.elapsed_time(b)
+                           for a, b in events[name][:per_prefill[name]])
+                 for name in per_prefill}
+    check(all(len(events[name]) == want[name] for name in per_prefill),
+          f"{arch}: warm run launch counts")
+    timing_out = {
+        "warm_prefill_ms": warm.prefill_s * 1e3,
+        "warm_kernel_ms_in_prefill": kernel_ms,
+        "kernel_share_of_warm_prefill":
+            sum(kernel_ms.values()) / (warm.prefill_s * 1e3),
+        "warm_decode_ms_per_token": warm.decode_s_per_token * 1e3,
+        "warm_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if "wkv6" in per_decode:
+        timing_out["warm_wkv6_ms_per_decode_step"] = sum(
+            a.elapsed_time(b) for a, b in events["wkv6"][per_prefill["wkv6"]:]
+        ) / (SERVE_NEW - 1)
+    del warm, events
     torch.cuda.empty_cache()
 
     # a small float32 model: the card against the CPU on the same weights
     small = reduced(cfg)
+    if small_layers:
+        small = dataclasses.replace(small, n_layers=small_layers)
     params = build_model(small).init(torch.Generator().manual_seed(1))
 
     def to(tree, device):
@@ -345,13 +682,15 @@ def serve_phase(dev) -> dict:
     small_err = float((on_card.last_logits.cpu() - on_cpu.last_logits)
                       .abs().max())
     check(torch.equal(on_card.tokens.cpu(), on_cpu.tokens),
-          "reduced model: card and CPU tokens equal")
-    check(small_err <= 1e-4, f"reduced model: logits within 1e-4 "
+          f"reduced {arch}: card and CPU tokens equal")
+    check(small_err <= 1e-4, f"reduced {arch}: logits within 1e-4 "
                              f"({small_err})")
-    return {"phase": "serve", "arch": cfg.name, "batch": SERVE_BATCH,
-            "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
-            "dtype": cfg.dtype, "counts": counts, **first, **timing,
-            "layer_attention_max_abs_err": layer_err,
+    return {"phase": "serve", "arch": arch, "batch": SERVE_BATCH,
+            "prompt": prompt, "new_tokens": SERVE_NEW, "dtype": cfg.dtype,
+            "counts": counts, **first, **timing_out,
+            "launch_vs_plain_max_abs_err": {
+                k: v for k, v in launch_err.items() if v},
+            "reduced_model": f"{small.name}, {small.n_layers} layers",
             "reduced_card_vs_cpu_max_abs_err": small_err}
 
 
@@ -366,8 +705,7 @@ def main() -> int:
     from repro_torch.core import verify
     from repro_torch.core.jash import Jash, JashMeta, collatz_jash
     from repro_torch.core.ledger import merkle_root
-    from repro_torch.kernels import flash_attention, merkle, native, ref, \
-        sha256
+    from repro_torch.kernels import merkle, native, ref, sha256
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20260)
@@ -461,12 +799,26 @@ def main() -> int:
           == [hashlib_root(t) for t in forest], "merkle forest vs hashlib")
     flash = flash_vs_plain(dev)
     emit({"phase": "flash_vs_plain", **flash})
-    max_err["flash_attention"] = max(flash["max_abs_err"].values())
+    flash_win = flash_window_vs_plain(dev)
+    emit({"phase": "flash_window_vs_plain", **flash_win})
+    decay = decay_vs_plain(dev)
+    emit({"phase": "decay_scan_vs_plain", **decay})
+    wkv = wkv_vs_plain(dev)
+    emit({"phase": "wkv6_vs_plain", **wkv})
+    max_err["flash_attention"] = max(*flash["max_abs_err"].values(),
+                                     *flash_win["max_abs_err"].values())
+    max_err["decay_scan"] = decay["max_abs_err"]
+    max_err["wkv6"] = wkv["max_abs_err"]
     emit({"phase": "kernels_vs_plain", "sha256": sha_rows,
           "merkle": {"leaves": 1 << 22, "root": root_22, "equal": True,
                      "hashlib_2_16": True, "forest": "4 x 2**16"},
-          "flash_attention": {"cases": flash["cases"], "within_tolerance":
-                              True, "tolerance": FLASH_TOL},
+          "flash_attention": {"cases": flash["cases"] + flash_win["cases"],
+                              "within_tolerance": True,
+                              "tolerance": FLASH_TOL},
+          "decay_scan": {"cases": decay["cases"], "within_tolerance": True,
+                         "tolerance": DECAY_TOL},
+          "wkv6": {"cases": wkv["cases"], "within_tolerance": True,
+                   "tolerance": WKV_TOL},
           "max_abs_err": max_err})
 
     # timing at the main path's shapes
@@ -507,13 +859,17 @@ def main() -> int:
                    "bound_by": m_by, "nodes_per_s": parents / (m_ms * 1e-3)}
     flash_time = flash_times(dev)
     emit({"phase": "flash_times", "gpu": smi, **flash_time})
+    rec_times = recurrent_times(dev)
+    emit({"phase": "recurrent_times", "gpu": smi, **rec_times})
     emit({"phase": "kernel_times", "gpu": smi, "sha256": sha_times,
-          "merkle": merkle_time, "flash_attention": flash_time})
+          "merkle": merkle_time, "flash_attention": flash_time,
+          **rec_times})
     del digests, rows, top, forest_rows, mrows
     torch.cuda.empty_cache()
 
     # -- 3. the main path at full size -------------------------------------
-    sha256.launches = merkle.launches = flash_attention.launches = 0
+    for mod in _launch_counters().values():
+        mod.launches = 0
     verify.hashlib_fallbacks = 0
     node = Node(device="cuda", classic_arg_bits=MAIN_BITS)
     # host-clock split of each block into the workload's three steps
@@ -552,9 +908,8 @@ def main() -> int:
     audited = node.audit_chain()
     audit_s = time.perf_counter() - t
     torch.cuda.synchronize()
-    counts = {"sha256": sha256.launches, "merkle": merkle.launches,
-              "flash_attention": flash_attention.launches,
-              "hashlib_fallbacks": verify.hashlib_fallbacks}
+    counts = {name: mod.launches for name, mod in _launch_counters().items()}
+    counts["hashlib_fallbacks"] = verify.hashlib_fallbacks
 
     full, opt, classic = (r.payload for r in receipts)
     check([r.record.workload for r in receipts]
@@ -615,43 +970,62 @@ def main() -> int:
           "height": net.heights, "tip": net.tips[0],
           "seconds": time.perf_counter() - t})
 
-    # -- 5. serving qwen3-0.6b at full width ----------------------------------
-    served = serve_phase(dev)
-    emit(served)
+    # -- 5. serving at full width: qwen3-0.6b, rwkv6-7b, recurrentgemma-2b --
+    served = {
+        "qwen3-0.6b": serve_path(dev, "qwen3-0.6b", SERVE_PROMPT,
+                                 {"flash_attention": 28}, {}),
+        # WKV-6 in every layer, in prefill and at every decode step
+        "rwkv6-7b": serve_path(dev, "rwkv6-7b", RWKV_PROMPT, {"wkv6": 32},
+                               {"wkv6": 32}),
+        # 18 RG-LRU layers scan in prefill (decode steps them plainly) and
+        # 8 local-attention layers; 5 reduced layers keep the rest layers
+        "recurrentgemma-2b": serve_path(
+            dev, "recurrentgemma-2b", RG_PROMPT,
+            {"decay_scan": 18, "flash_attention": 8}, {}, small_layers=5),
+    }
+    for res in served.values():
+        emit(res)
 
     # -- 6. launch counts and the kernel table -------------------------------
     check(counts["sha256"] > 0 and counts["merkle"] > 0,
           "both hash kernels launched on the mining path")
-    check(served["counts"]["flash_attention"] > 0,
-          "flash attention launched on the serving path")
     check(counts["hashlib_fallbacks"] == 0, "hashlib fallback never fired")
+    check(all(counts[k] == 0 for k in SERVE_KERNELS),
+          "no serving kernel launched on the mining path")
     chunk = sha_times[0]
+    qwen, rg = served["qwen3-0.6b"]["counts"], \
+        served["recurrentgemma-2b"]["counts"]
+    flash_rg = rec_times["flash_attention_rg"]
+
+    def row(name, err, source, replaces, launches, times, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": launches, "max_abs_err": max_err[err],
+                **{k: times[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+                "shape": times["shape"], "matched": True, **extra}
     emit({"kernels": [
-        {"name": "sha256_rows", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/sha256.cu",
-         "replaces": "src/repro/kernels/sha256.py:34",
-         "launches": counts["sha256"], "max_abs_err": max_err["sha256"],
-         "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
-         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
-         "library_ms": None, "shape": chunk["shape"], "matched": True},
-        {"name": "merkle_level", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/merkle.cu",
-         "replaces": "src/repro/kernels/merkle.py:132",
-         "launches": counts["merkle"], "max_abs_err": max_err["merkle"],
-         "ms": merkle_time["ms"], "plain_ms": merkle_time["plain_ms"],
-         "bound_ms": merkle_time["bound_ms"],
-         "bound_by": merkle_time["bound_by"], "library_ms": None,
-         "shape": merkle_time["shape"], "matched": True},
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:28",
-         "launches": served["counts"]["flash_attention"],
-         "max_abs_err": max_err["flash_attention"],
-         "ms": flash_time["ms"], "plain_ms": flash_time["plain_ms"],
-         "bound_ms": flash_time["bound_ms"],
-         "bound_by": flash_time["bound_by"],
-         "library_ms": flash_time["library_ms"],
-         "shape": flash_time["shape"], "matched": True},
+        row("sha256_rows", "sha256", "sha256.cu", "sha256.py:34",
+            counts["sha256"], {**chunk, "library_ms": None}, path="mining"),
+        row("merkle_level", "merkle", "merkle.cu", "merkle.py:132",
+            counts["merkle"], {**merkle_time, "library_ms": None},
+            path="mining"),
+        row("flash_attention_fwd", "flash_attention", "flash_attention.cu",
+            "flash_attention.py:28",
+            qwen["flash_attention"] + rg["flash_attention"], flash_time,
+            path="serving qwen3-0.6b (28) and recurrentgemma-2b (8)",
+            launches_by_path={"qwen3-0.6b": qwen["flash_attention"],
+                              "recurrentgemma-2b": rg["flash_attention"]},
+            recurrentgemma_shape={k: flash_rg[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}),
+        row("decay_scan", "decay_scan", "decay_scan.cu", "decay_scan.py:21",
+            rg["decay_scan"], rec_times["decay_scan"],
+            path="serving recurrentgemma-2b"),
+        row("wkv6", "wkv6", "wkv6.cu", "wkv6.py:22",
+            served["rwkv6-7b"]["counts"]["wkv6"], rec_times["wkv6"],
+            path="serving rwkv6-7b"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

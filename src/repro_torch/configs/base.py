@@ -3,8 +3,9 @@
 
 ``get_config(name)`` resolves from the registry; ``reduced(cfg)`` gives the
 small CPU variant (2 layers, d_model <= 256, head_dim 32) the tests use.
-Only the configs the port runs are registered: ``qwen3-0.6b`` (serving)
-and ``pnpcoin-demo`` (the chain's training payload).
+Only the configs the port runs are registered: ``qwen3-0.6b``,
+``rwkv6-7b`` and ``recurrentgemma-2b`` (serving) and ``pnpcoin-demo`` (the
+chain's training payload).
 """
 from __future__ import annotations
 
@@ -99,7 +100,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def _load_all() -> None:
     import importlib
-    for mod in ("qwen3_0_6b", "pnpcoin_demo"):
+    for mod in ("qwen3_0_6b", "recurrentgemma_2b", "rwkv6_7b",
+                "pnpcoin_demo"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -8,7 +8,8 @@
 // q (B, S, H, hd), k and v (B, T, Kv, hd), out (B, S, H, hd), all in one
 // dtype (float32 or bfloat16), contiguous. float32 math inside: scores
 // scaled by 1/sqrt(hd), masked scores -1e30, out = acc / max(l, 1e-20).
-// With `causal`, query s sees keys t <= s (queries at offset 0).
+// With `causal`, query s sees keys t <= s (queries at offset 0); with
+// `window` > 0 only keys t > s - window (recurrentgemma's local attention).
 //
 // What bounds it on an H100: operations. At the serve shape (S = T = 2048,
 // hd 128) it does 4 hd flops per (query, key) pair against 2 hd bytes of
@@ -30,10 +31,16 @@
 //   micro-tile takes two vector loads per 16 FMAs, and its 4 x hd/16 output
 //   micro-tile hd/64 V vectors (plus one P vector) per key for hd/4 FMAs.
 //   K and V share one buffer (K for the scores, then V), so at hd 128 a
-//   block needs 81 KB and two blocks fit an SM;
+//   block needs 81 KB and two blocks fit an SM. At hd 256 a block needs
+//   148 KB and holds 64 accumulators a thread, so it runs one block an SM
+//   with the whole register file open to it (no spills);
 // - ragged S and T are masked (rows and keys past the end are zero in
 //   shared memory and masked in the scores); causal blocks stop at the
-//   diagonal tile and never load the tiles above it;
+//   diagonal tile and never load the tiles above it; windowed blocks start
+//   at the first tile that holds a key inside the band of their first row,
+//   so at S = 4096 and window 2048 a block reads at most 33 tiles, not 64;
+// - MQA and GQA alike: query head h reads KV head h / (H / Kv), so the ten
+//   query heads of recurrentgemma share the one K and V in place;
 // - one block owns each output row and reduces its keys in a fixed order
 //   (fixed shuffle trees, no atomics), so the output is the same from run
 //   to run.
@@ -100,10 +107,10 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, HD > 128 ? 1 : 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int T_len,
-                 int H, int Kv, int causal, float scale) {
+                 int H, int Kv, int causal, int window, float scale) {
     constexpr int CN = Chunk<T>::N;   // elements per 16-byte chunk
     constexpr int CPR = HD / CN;      // chunks per row
     constexpr int CPT = HD / 16;      // output columns per thread
@@ -143,8 +150,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q_last = min(q0 + BQ, S) - 1;
     int n_tiles = (T_len + BK - 1) / BK;
     if (causal) n_tiles = min(n_tiles, q_last / BK + 1);
+    // the band of the block's first row starts at key q0 - window + 1; a
+    // later row whose keys all lie past a tile starts with that tile fully
+    // masked, which the next tile's rescale (alpha = 0) wipes out
+    const int kt_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
-    for (int kt = 0; kt < n_tiles; ++kt) {
+    for (int kt = kt_first; kt < n_tiles; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();              // the last tile's V and P are consumed
         for (int i = tid; i < BK * CPR; i += THREADS) {
@@ -182,7 +193,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 const int kp = k0 + 4 * tx + j;
-                const bool keep = kp < T_len && (!causal || kp <= qp);
+                const bool keep = kp < T_len && (!causal || kp <= qp) &&
+                                  (window <= 0 || kp > qp - window);
                 s[i][j] = keep ? s[i][j] * scale : NEG_INF;
                 mx = fmaxf(mx, s[i][j]);
             }
@@ -254,7 +266,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
-           int64_t S, int64_t T_len, int H, int Kv, int causal,
+           int64_t S, int64_t T_len, int H, int Kv, int causal, int window,
            cudaStream_t stream) {
     const int smem = (int)sizeof(float) * (HD * BQ + HD * BK + BQ * PS);
     cudaError_t err = cudaFuncSetAttribute(
@@ -264,18 +276,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
                     (unsigned int)B);
     flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, (int)S, (int)T_len, H, Kv,
-        causal, 1.0f / sqrtf((float)HD));
+        causal, window, 1.0f / sqrtf((float)HD));
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int64_t B,
               int64_t S, int64_t T_len, int H, int Kv, int hd, int causal,
-              cudaStream_t stream) {
+              int window, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<T, 32>(q, k, v, o, B, S, T_len, H, Kv, causal, stream);
-        case 64: return launch<T, 64>(q, k, v, o, B, S, T_len, H, Kv, causal, stream);
-        case 128: return launch<T, 128>(q, k, v, o, B, S, T_len, H, Kv, causal, stream);
+        case 32: return launch<T, 32>(q, k, v, o, B, S, T_len, H, Kv, causal, window, stream);
+        case 64: return launch<T, 64>(q, k, v, o, B, S, T_len, H, Kv, causal, window, stream);
+        case 128: return launch<T, 128>(q, k, v, o, B, S, T_len, H, Kv, causal, window, stream);
+        case 256: return launch<T, 256>(q, k, v, o, B, S, T_len, H, Kv, causal, window, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -283,21 +296,24 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int64_t B,
 }  // namespace
 
 // q: (B, S, H, hd); k, v: (B, T, Kv, hd); out: (B, S, H, hd); contiguous,
-// one dtype: 0 = float32, 1 = bfloat16. hd in {32, 64, 128}; H % Kv == 0.
-// Launches on `stream` and returns cudaGetLastError().
+// one dtype: 0 = float32, 1 = bfloat16. hd in {32, 64, 128, 256};
+// H % Kv == 0; window 0 for none. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int pnp_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* out, int64_t B,
                                        int64_t S, int64_t T, int32_t H,
                                        int32_t Kv, int32_t hd, int32_t causal,
-                                       int32_t dtype, void* stream) {
-    if (B < 0 || S < 0 || T < 1 || H < 1 || Kv < 1 || H % Kv ||
+                                       int32_t window, int32_t dtype,
+                                       void* stream) {
+    if (B < 0 || S < 0 || T < 1 || H < 1 || Kv < 1 || H % Kv || window < 0 ||
         S > INT32_MAX || T > INT32_MAX || B > 65535 || H > 65535)
         return (int)cudaErrorInvalidValue;
     if (B == 0 || S == 0) return 0;
     const cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0)
-        return launch_hd<float>(q, k, v, out, B, S, T, H, Kv, hd, causal, st);
+        return launch_hd<float>(q, k, v, out, B, S, T, H, Kv, hd, causal, window, st);
     if (dtype == 1)
-        return launch_hd<__nv_bfloat16>(q, k, v, out, B, S, T, H, Kv, hd, causal, st);
+        return launch_hd<__nv_bfloat16>(q, k, v, out, B, S, T, H, Kv, hd, causal,
+                                        window, st);
     return (int)cudaErrorInvalidValue;
 }

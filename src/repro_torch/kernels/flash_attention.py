@@ -3,8 +3,9 @@
 
 It replaces the Pallas kernel of ``repro/kernels/flash_attention.py``:
 the attention forward with an online softmax, float32 inside, causal by
-absolute position. It maps each query head to its KV head by index (GQA)
-and masks ragged S and T itself. ``kernels/ops.py`` sends CUDA tensors here
+absolute position, optionally within a local window. It maps each query
+head to its KV head by index (GQA and MQA) and masks ragged S and T
+itself. ``kernels/ops.py`` sends CUDA tensors here
 and CPU tensors to ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.kernels import native
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the last reset (a run shows its path went through
@@ -22,9 +23,10 @@ launches = 0
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool) -> torch.Tensor:
+                         *, causal: bool, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, T, Kv, hd) on one CUDA card, contiguous,
-    float32 or bfloat16 -> (B, S, H, hd) in q's dtype."""
+    float32 or bfloat16 -> (B, S, H, hd) in q's dtype. ``window > 0``: query
+    s sees only keys t > s - window."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -58,12 +60,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "heads")
     if T < 1:
         raise ValueError("flash_attention_cuda: no keys")
+    if window < 0:
+        raise ValueError(f"flash_attention_cuda: window {window} < 0")
     out = torch.empty_like(q)
     if B and S:
         with torch.cuda.device(q.device):
             rc = native.library().pnp_flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, T, H, Kv, hd, int(causal), _DTYPES[q.dtype],
+                B, S, T, H, Kv, hd, int(causal), int(window), _DTYPES[q.dtype],
                 native.stream_of(q))
         launches += 1
         native.check_launch("flash_attention_cuda", rc)

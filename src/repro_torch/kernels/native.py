@@ -118,8 +118,13 @@ def library() -> ctypes.CDLL:
     lib.pnp_merkle_level.argtypes = [vp, i64, i64, vp, vp]
     lib.pnp_merkle_level.restype = ctypes.c_int
     lib.pnp_flash_attention_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,
-                                            i32, i32, i32, i32, i32, vp]
+                                            i32, i32, i32, i32, i32, i32, vp]
     lib.pnp_flash_attention_fwd.restype = ctypes.c_int
+    lib.pnp_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
+                             i32, i32, i32, vp]
+    lib.pnp_wkv6.restype = ctypes.c_int
+    lib.pnp_decay_scan.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, vp]
+    lib.pnp_decay_scan.restype = ctypes.c_int
     return lib
 
 

@@ -8,8 +8,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decay_scan import decay_scan_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.sha256 import sha256_rows_cuda
+from repro_torch.kernels.wkv6 import wkv6_cuda
 
 
 def _cpu_only(name: str, t: torch.Tensor) -> None:
@@ -38,11 +40,68 @@ def sha256_words(msg: torch.Tensor, *, bswap: bool = False) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool) -> torch.Tensor:
+                    causal: bool, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, T, Kv, hd) -> (B, S, H, hd) in q's dtype.
     Softmax attention with scores scaled by 1/sqrt(hd); GQA maps query head
-    h to KV head h // (H // Kv)."""
+    h to KV head h // (H // Kv); ``window > 0`` lets query s see only keys
+    t > s - window."""
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
     _cpu_only("flash_attention", q)
-    return ref.flash_attention_ref(q, k, v, causal=causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def _decay_scan_plain(a, b, h0):
+    h = ref.decay_scan_ref(a, b, h0)
+    return h, h[:, -1]
+
+
+def decay_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None,
+               seq_chunk: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t h_{t-1} + b_t. a, b: (B, S, C); h0: (B, C) or None (zeros).
+    Returns (h, h_last). By default the whole sequence is one piece; with
+    ``seq_chunk`` it runs in pieces of that many steps, h carried from one
+    to the next (the reference's contract). On the card each piece is one
+    kernel launch, float32 only."""
+    if a.is_cuda:
+        scan = decay_scan_cuda
+    else:
+        _cpu_only("decay_scan", a)
+        scan = _decay_scan_plain
+    S = a.shape[1]
+    if seq_chunk is None or S <= seq_chunk:
+        return scan(a, b, h0)
+    outs, h = [], h0
+    for s0 in range(0, S, seq_chunk):
+        piece = slice(s0, min(s0 + seq_chunk, S))
+        o, h = scan(a[:, piece].contiguous(), b[:, piece].contiguous(), h)
+        outs.append(o)
+    return torch.cat(outs, dim=1), h
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, s0: Optional[torch.Tensor] = None,
+         seq_chunk: Optional[int] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, w: (B, S, H, K); v: (B, S, H, V); u: (H, K); s0: (B, H, K, V)
+    or None (zeros). Returns (out (B, S, H, V), s_final (B, H, K, V)), both
+    float32. By default the whole sequence is one piece; with ``seq_chunk``
+    it runs in pieces of that many steps, the state carried from one to the
+    next (the reference's contract). On the card each piece is one kernel
+    launch."""
+    if r.is_cuda:
+        step = wkv6_cuda
+    else:
+        _cpu_only("wkv6", r)
+        step = ref.wkv6_ref
+    S = r.shape[1]
+    if seq_chunk is None or S <= seq_chunk:
+        return step(r, k, v, w, u, s0)
+    outs, s = [], s0
+    for c0 in range(0, S, seq_chunk):
+        piece = slice(c0, min(c0 + seq_chunk, S))
+        o, s = step(*(x[:, piece].contiguous() for x in (r, k, v, w)), u, s)
+        outs.append(o)
+    return torch.cat(outs, dim=1), s

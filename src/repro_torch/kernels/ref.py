@@ -1,5 +1,5 @@
-"""Plain PyTorch versions the CUDA kernels are held against: SHA-256 and
-flash attention.
+"""Plain PyTorch versions the CUDA kernels are held against: SHA-256,
+flash attention, the decay scan and the RWKV-6 recurrence.
 
 SHA-256: 32-bit words live in int64 tensors masked to 32 bits after every operation
 that can carry past them (``+``, ``<<``); ``~x`` is written ``x ^ MASK32``.
@@ -8,11 +8,14 @@ truth both are checked against.
 
 ``flash_attention_ref`` is the function of the reference's Pallas flash
 kernel and of ``repro.models.attention.chunked_attention``, written out
-plainly in float32.
+plainly in float32. ``decay_scan_ref`` and ``wkv6_ref`` are the
+reference's recurrences (``repro/kernels/ref.py``) as sequential loops
+over time in float32.
 """
 from __future__ import annotations
 
 import hashlib
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,12 +108,13 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool) -> torch.Tensor:
+                        *, causal: bool, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, T, Kv, hd) -> (B, S, H, hd) in q's dtype.
 
     float32 math, scores scaled by 1/sqrt(hd). With ``causal``, query s
-    sees keys t <= s (absolute positions, queries at offset 0). Query head
-    h reads KV head h // (H // Kv)."""
+    sees keys t <= s (absolute positions, queries at offset 0); with
+    ``window > 0`` only keys t > s - window. Query head h reads KV head
+    h // (H // Kv)."""
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
     if H % Kv:
@@ -119,8 +123,48 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float().repeat_interleave(g, dim=2)
     vf = v.float().repeat_interleave(g, dim=2)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), kf) / hd ** 0.5
-    if causal:
-        keep = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
+    if causal or window:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(T, device=q.device)[None, :]
+        keep = torch.ones(S, T, dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= kp <= qp
+        if window:
+            keep &= kp > qp - window
         scores = scores.masked_fill(~keep, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bthd->bshd", probs, vf).to(q.dtype)
+
+
+def decay_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over (B, S, C), from h0 (B, C) or zeros.
+    float32 inside, returned in a's dtype."""
+    a32, b32 = a.float(), b.float()
+    h = (torch.zeros_like(a32[:, 0]) if h0 is None else h0.float())
+    out = torch.empty_like(a32)
+    for t in range(a.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             s0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, w: (B, S, H, K); v: (B, S, H, V); u: (H, K); s0: (B, H, K, V).
+    Returns (out (B, S, H, V), s_final (B, H, K, V)), both float32:
+    o_t = r_t^T (S + (u * k_t) v_t^T), then S <- diag(w_t) S + k_t v_t^T."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float().clone())
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    u32 = u.float()[None, :, :, None]
+    out = torch.empty((B, S, H, V), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]
+        out[:, t] = torch.einsum("bhk,bhkv->bhv", r32[:, t], s + u32 * kv)
+        s = w32[:, t, :, :, None] * s + kv
+    return out, s

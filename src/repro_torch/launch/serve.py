@@ -3,14 +3,22 @@ cache, on one card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --reduced 0 --batch 8 --prompt-len 2048 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --reduced 0 --batch 8 --prompt-len 2048 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --reduced 0 --batch 8 --prompt-len 4096
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced 1
 
-Weights are random, drawn from a ``torch.Generator(seed)`` on the device;
-prompt tokens from a CPU generator of the same seed, so a seed gives the
-same prompt on every device. Prefill runs the hand-written
-flash-attention kernel on every layer; without a card the entry point
-raises unless ``--device cpu`` is given, which runs the plain PyTorch
-versions.
+Weights are random, drawn from a ``torch.Generator(seed)`` on the device
+one tensor at a time (a float32 draw, then the model's dtype), so the
+16.1 GB of rwkv6-7b in bf16 never exist as float32 at once; prompt tokens
+come from a CPU generator of the same seed, so a seed gives the same
+prompt on every device. The hand-written kernels carry the layers:
+flash attention in every attention layer's prefill (with recurrentgemma's
+local window), WKV-6 in every RWKV-6 layer's prefill and decode, the
+decay scan in every RG-LRU layer's prefill. Without a card the entry
+point raises unless ``--device cpu`` is given, which runs the plain
+PyTorch versions.
 """
 from __future__ import annotations
 

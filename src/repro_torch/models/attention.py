@@ -1,10 +1,10 @@
 """Attention: the port of ``repro/models/attention.py`` for serving.
 
-GQA + qk-norm + rope. Prefill runs causal attention through
-``kernels.ops.flash_attention`` (the hand-written kernel on the card) and
-fills the KV cache; decode attends one token over the ring cache in plain
-PyTorch, as the reference does in plain jnp. One card has no sharding, so
-the reference's ``constrain`` calls are dropped.
+GQA + qk-norm + rope. Prefill runs causal attention, optionally within a
+local window, through ``kernels.ops.flash_attention`` (the hand-written
+kernel on the card) and fills the KV cache; decode attends one token over
+the ring cache in plain PyTorch, as the reference does in plain jnp. One
+card has no sharding, so the reference's ``constrain`` calls are dropped.
 
 Unlike the reference, the cache is updated in place: prefill and decode
 write their keys and values into the cache tensors they are given and
@@ -72,18 +72,15 @@ def prefill_self_attention(p: Dict, x: torch.Tensor, cache: Dict, *,
                            rope_theta: float, window: int = 0,
                            qk_norm: bool = False
                            ) -> Tuple[torch.Tensor, Dict]:
-    """Prefill: full causal attention over the prompt, and the prompt's
-    keys and values written into the (ring) cache."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window prefill: ROADMAP.md §1, the remaining model "
-            "families")
+    """Prefill: causal attention over the prompt (within ``window`` keys
+    where it is > 0), and the prompt's keys and values written into the
+    (ring) cache."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm)
     positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True)
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
     out = out.reshape(B, S, n_heads * head_dim) @ p["wo"]
 
     C = cache["k"].shape[1]

@@ -1,5 +1,6 @@
-"""``build_model``: config -> model (dense family), and the per-shape
-config adaptation and cache length of ``repro/models/model.py``."""
+"""``build_model``: config -> model (the dense, hybrid and ssm families),
+and the per-shape config adaptation and cache length of
+``repro/models/model.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +25,8 @@ def adapt_for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
 
 
 def cache_len_for(cfg: ModelConfig, shape: InputShape) -> int:
+    """The attention cache's length: the window caps it (recurrentgemma:
+    2048), else the whole sequence."""
     if cfg.window:
         return min(shape.seq_len, cfg.window)
     return shape.seq_len

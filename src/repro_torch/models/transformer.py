@@ -1,17 +1,21 @@
-"""Decoder-only model assembly: the dense path of
+"""Decoder-only model assembly: the dense, hybrid and ssm paths of
 ``repro/models/transformer.py``, for serving.
 
-Params keep the reference's stacked layout: ``groups/l0`` holds every
-layer with a leading ``n_layers`` axis (the dense pattern is one kind of
-layer, so the reference's ``rest{r}`` layers never occur), and weights
-converted from the reference drop in. Layers run as a Python loop over
-that axis (the reference scans it). The other families raise
-``NotImplementedError``.
+Params and caches keep the reference's layout, so weights converted from
+it drop in: ``groups/l{j}`` holds the j-th kind of layer of the repeating
+pattern, stacked over ``n_groups`` (dense: one ``attn``; ssm: one
+``rwkv``; recurrentgemma: ``rec, rec, attn``), and ``rest{r}`` the
+unstacked layers left after the last whole group. Layers run as a Python
+loop over the stack (the reference scans it). The moe, encdec and vlm
+families raise ``NotImplementedError``.
 
     init(gen)                          -> params
     init_cache(batch, cache_len)       -> cache
     prefill(params, batch, cache)      -> (logits of the last token, cache)
     decode_step(params, batch, cache)  -> (logits, cache)     # one token
+
+Caches are updated in place: each layer writes its new keys, values or
+recurrent state into its view of the stacked cache tensors.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (compute_dtype, embed_init, init_mlp,
                                        mlp, rms_norm)
 
@@ -29,8 +35,6 @@ Params = Dict[str, Any]
 # where each family's port stands in ROADMAP.md
 _FAMILY_TODO = {
     "moe": "ROADMAP.md §1, the remaining model families (models/moe.py)",
-    "hybrid": "ROADMAP.md §1, the RG-LRU slice (models/rglru.py)",
-    "ssm": "ROADMAP.md §1, the RWKV-6 slice (models/rwkv6.py)",
     "encdec": "ROADMAP.md §1, the remaining model families "
               "(models/encdec.py)",
     "vlm": "ROADMAP.md §1, the remaining model families (models/vlm.py)",
@@ -41,6 +45,11 @@ def _zeros(shape, n_stack, device):
     if n_stack:
         shape = (n_stack,) + shape
     return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# sub-layer init
+# ---------------------------------------------------------------------------
 
 
 def _init_attn_layer(gen: torch.Generator, cfg: ModelConfig,
@@ -56,6 +65,44 @@ def _init_attn_layer(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _init_rec_layer(gen: torch.Generator, cfg: ModelConfig,
+                    n_stack: int) -> Params:
+    dt = compute_dtype(cfg)
+    return {
+        "ln1": _zeros((cfg.d_model,), n_stack, gen.device),
+        "ln2": _zeros((cfg.d_model,), n_stack, gen.device),
+        "rec": rglru_mod.init_rglru_block(
+            gen, cfg.d_model, cfg.lru_width or cfg.d_model, dt, n_stack),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, n_stack),
+    }
+
+
+def _init_rwkv_layer(gen: torch.Generator, cfg: ModelConfig,
+                     n_stack: int) -> Params:
+    return {
+        "ln1": _zeros((cfg.d_model,), n_stack, gen.device),
+        "ln2": _zeros((cfg.d_model,), n_stack, gen.device),
+        "mix": rwkv_mod.init_rwkv_layer(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.wkv_head_dim,
+                                        compute_dtype(cfg), n_stack),
+    }
+
+
+# ---------------------------------------------------------------------------
+# sub-layer apply (one layer, unstacked params; the cache is updated in
+# place)
+# ---------------------------------------------------------------------------
+
+
+def _assign(dst: Dict, src: Dict) -> None:
+    """Write a layer's new recurrent state into its cache views."""
+    for key, val in src.items():
+        if isinstance(val, dict):
+            _assign(dst[key], val)
+        elif val is not dst[key]:
+            dst[key].copy_(val)
+
+
 def _apply_attn_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                       mode: str, cache: Dict, pos: int) -> torch.Tensor:
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -65,14 +112,57 @@ def _apply_attn_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     if mode == "prefill":
         out, _ = attn.prefill_self_attention(
             lp["attn"], h, cache, window=cfg.window, **kw)
-    elif mode == "decode":
-        out, _ = attn.decode_self_attention(lp["attn"], h, cache, pos, **kw)
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: the training slice (ROADMAP.md §1) ports "
-            "`self_attention` and the train forward")
+        out, _ = attn.decode_self_attention(lp["attn"], h, cache, pos, **kw)
     x = x + out
     return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]))
+
+
+def _apply_rec_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                     mode: str, cache: Dict, pos: int) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"])
+    out, new_state = rglru_mod.rglru_block(lp["rec"], h, cache)
+    _assign(cache, new_state)
+    x = x + out
+    return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]))
+
+
+def _apply_rwkv_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                      mode: str, cache: Dict, pos: int) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"])
+    out, new_tm = rwkv_mod.time_mix(lp["mix"], h, cache["tm"],
+                                    cfg.wkv_head_dim)
+    x = x + out
+    out2, new_cm = rwkv_mod.channel_mix(lp["mix"], rms_norm(x, lp["ln2"]),
+                                        cache["cm_tok"])
+    _assign(cache, {"tm": new_tm, "cm_tok": new_cm})
+    return x + out2
+
+
+_SUBLAYER = {"attn": _apply_attn_layer, "rec": _apply_rec_layer,
+             "rwkv": _apply_rwkv_layer}
+_SUBINIT = {"attn": _init_attn_layer, "rec": _init_rec_layer,
+            "rwkv": _init_rwkv_layer}
+
+
+def _init_sub_cache(kind: str, cfg: ModelConfig, batch: int,
+                    cache_len: int, device) -> Dict:
+    dt = compute_dtype(cfg)
+    if kind == "attn":
+        C = min(cache_len, cfg.window) if cfg.window else cache_len
+        return attn.init_kv_cache(batch, C, cfg.n_kv_heads,
+                                  cfg.resolved_head_dim, dt, device)
+    if kind == "rec":
+        return rglru_mod.init_rec_state(batch, cfg.lru_width or cfg.d_model,
+                                        dt, device)
+    return rwkv_mod.init_rwkv_state(batch, cfg.d_model, cfg.wkv_head_dim,
+                                    dt, device)
+
+
+def _stack(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stack(v, n) for k, v in tree.items()}
+    return tree.expand((n,) + tree.shape).contiguous()
 
 
 def _index(tree, i: int):
@@ -82,15 +172,23 @@ def _index(tree, i: int):
 
 
 class Model:
-    """Decoder-only LM over a stack of attention layers (dense family)."""
+    """Decoder-only LM over a (possibly heterogeneous) layer stack."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "hybrid", "ssm"):
             raise NotImplementedError(
                 f"family {cfg.family!r}: "
                 f"{_FAMILY_TODO.get(cfg.family, 'ROADMAP.md §1')}")
         self.cfg = cfg
-        self.n_groups = cfg.n_layers
+        if cfg.family == "hybrid" and cfg.pattern:
+            pat = list(cfg.pattern)
+        elif cfg.family == "ssm":
+            pat = ["rwkv"]
+        else:
+            pat = ["attn"]
+        self.pattern = pat
+        self.n_groups = cfg.n_layers // len(pat)
+        self.n_rest = cfg.n_layers - self.n_groups * len(pat)
 
     # -- init ---------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
@@ -104,7 +202,10 @@ class Model:
         }
         if not cfg.tie_embeddings:
             p["unembed"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dt)
-        p["groups"] = {"l0": _init_attn_layer(gen, cfg, self.n_groups)}
+        p["groups"] = {f"l{j}": _SUBINIT[kind](gen, cfg, self.n_groups)
+                       for j, kind in enumerate(self.pattern)}
+        for r in range(self.n_rest):
+            p[f"rest{r}"] = _SUBINIT[self.pattern[r]](gen, cfg, 0)
         return p
 
     # -- embedding / head -----------------------------------------------------
@@ -118,26 +219,33 @@ class Model:
 
     # -- cache ----------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, device=None) -> Dict:
-        """The reference's cache layout: ``groups/l0`` holds each layer's
-        ring cache with a leading ``n_layers`` axis; ``pos`` counts the
-        tokens seen (a Python int here)."""
-        cfg = self.cfg
-        C = min(cache_len, cfg.window) if cfg.window else cache_len
-        one = attn.init_kv_cache(batch, C, cfg.n_kv_heads,
-                                 cfg.resolved_head_dim, compute_dtype(cfg),
-                                 device)
-        stacked = {k: v.expand((self.n_groups,) + v.shape).contiguous()
-                   for k, v in one.items()}
-        return {"pos": 0, "groups": {"l0": stacked}}
+        """The reference's cache layout: ``groups/l{j}`` holds each layer's
+        ring KV cache (attn: ``k``, ``v``, ``slot_pos``) or recurrent state
+        (rec: ``h``, ``conv``; rwkv: ``tm/tok``, ``tm/wkv``, ``cm_tok``)
+        with a leading ``n_groups`` axis, ``rest{r}`` the rest layers';
+        ``pos`` counts the tokens seen (a Python int here)."""
+        cache: Dict = {"pos": 0, "groups": {
+            f"l{j}": _stack(_init_sub_cache(kind, self.cfg, batch,
+                                            cache_len, device),
+                            self.n_groups)
+            for j, kind in enumerate(self.pattern)}}
+        for r in range(self.n_rest):
+            cache[f"rest{r}"] = _init_sub_cache(self.pattern[r], self.cfg,
+                                                batch, cache_len, device)
+        return cache
 
     # -- prefill / decode -------------------------------------------------------
     def _stateful(self, p: Params, x: torch.Tensor, cache: Dict, mode: str):
+        cfg, pos = self.cfg, cache["pos"]
         for i in range(self.n_groups):
-            # each layer writes into its view of the stacked cache tensors
-            x = _apply_attn_layer(
-                _index(p["groups"]["l0"], i), x, self.cfg, mode,
-                _index(cache["groups"]["l0"], i), cache["pos"])
-        return x, {"groups": cache["groups"]}
+            gp, gc = _index(p["groups"], i), _index(cache["groups"], i)
+            for j, kind in enumerate(self.pattern):
+                x = _SUBLAYER[kind](gp[f"l{j}"], x, cfg, mode, gc[f"l{j}"],
+                                    pos)
+        for r in range(self.n_rest):
+            x = _SUBLAYER[self.pattern[r]](p[f"rest{r}"], x, cfg, mode,
+                                           cache[f"rest{r}"], pos)
+        return x, {k: v for k, v in cache.items() if k != "pos"}
 
     def prefill(self, p: Params, batch: Dict, cache: Dict):
         tokens = batch["tokens"]

@@ -11,8 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (flash_attention, merkle, ops,  # noqa: E402
-                                 ref, sha256)
+from repro_torch.kernels import (decay_scan, flash_attention,  # noqa: E402
+                                 merkle, ops, ref, sha256, wkv6)
 
 pytestmark = pytest.mark.cuda
 
@@ -131,3 +131,132 @@ def test_flash_wrapper_refuses_bad_input(card):
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         flash_attention.flash_attention_cuda(q.half(), q.half(), q.half(),
                                              causal=True)
+
+
+# chip_smoke.py's flash window cases at recurrentgemma's head shape (hd 256,
+# ten query heads over one KV head), with ragged S, and the reduced model's
+FLASH_WINDOW_CASES = [(256, 10, 1, w, n) for w in (0, 64, 2048)
+                      for n in (33, 1000, 2500)]
+FLASH_WINDOW_CASES += [(32, 8, 1, 64, 200), (64, 2, 2, 100, 333),
+                       (128, 2, 2, 64, 130)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,g,kv,window,n", FLASH_WINDOW_CASES)
+def test_flash_kernel_window_matches_plain_version(card, dtype, hd, g, kv,
+                                                   window, n):
+    q, k, v = _qkv(hd, g, n, n, dtype, card, hd + window + n, b=1, kv=kv)
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True,
+                                           window=window), got)
+
+
+DECAY_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _decay_inputs(b, s, c, card, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    a = torch.rand((b, s, c), generator=gen, device=card) * 0.7 + 0.3
+    x = torch.randn((b, s, c), generator=gen, device=card)
+    h0 = torch.randn((b, c), generator=gen, device=card)
+    return a, x, h0
+
+
+@pytest.mark.parametrize("c", [1, 129, 2560])
+@pytest.mark.parametrize("s", [1, 37, 300])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_decay_scan_kernel_matches_plain_version(card, c, s, with_h0):
+    a, x, h0 = _decay_inputs(2, s, c, card, c + s)
+    h0 = h0 if with_h0 else None
+    before = decay_scan.launches
+    got, got_last = ops.decay_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert decay_scan.launches == before + 1
+    want = ref.decay_scan_ref(a, x, h0)
+    torch.testing.assert_close(got, want, **DECAY_TOL)
+    torch.testing.assert_close(got_last, want[:, -1], **DECAY_TOL)
+    assert torch.equal(ops.decay_scan(a, x, h0)[0], got)
+
+
+def test_decay_scan_chunked_equals_whole(card):
+    a, x, h0 = _decay_inputs(3, 100, 130, card, 5)
+    whole, whole_last = ops.decay_scan(a, x, h0)
+    before = decay_scan.launches
+    parts, parts_last = ops.decay_scan(a, x, h0, seq_chunk=16)
+    assert decay_scan.launches == before + 7
+    torch.testing.assert_close(parts, whole, **DECAY_TOL)
+    torch.testing.assert_close(parts_last, whole_last, **DECAY_TOL)
+
+
+WKV_TOL = dict(rtol=1e-4, atol=1e-4)
+# test_kernels.py::TestWkv6's shapes, the hand check's, the reduced
+# model's and the serve head at a short sequence: (B, S, H, K, V)
+WKV_SHAPES = [(1, 5, 1, 4, 4), (2, 19, 3, 8, 8), (1, 33, 2, 16, 16),
+              (1, 1, 1, 3, 2), (2, 40, 8, 32, 32), (8, 64, 64, 64, 64)]
+
+
+def _wkv_inputs(shape, dtype, card, seed):
+    B, S, H, K, V = shape
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=card)
+    r, k, v = randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, V)
+    w = torch.sigmoid(randn(B, S, H, K)) * 0.5 + 0.5
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, randn(H, K),
+            randn(B, H, K, V))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+@pytest.mark.parametrize("with_s0", [True, False])
+def test_wkv6_kernel_matches_plain_version(card, dtype, shape, with_s0):
+    r, k, v, w, u, s0 = _wkv_inputs(shape, dtype, card, sum(shape))
+    s0 = s0 if with_s0 else None
+    before = wkv6.launches
+    out, s_final = ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    want_o, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+    assert out.dtype == s_final.dtype == torch.float32
+    torch.testing.assert_close(out, want_o, **WKV_TOL)
+    torch.testing.assert_close(s_final, want_s, **WKV_TOL)
+    assert torch.equal(ops.wkv6(r, k, v, w, u, s0)[0], out)
+
+
+def test_wkv6_steps_and_chunks_equal_one_call(card):
+    r, k, v, w, u, s0 = _wkv_inputs((2, 23, 4, 64, 64), torch.bfloat16,
+                                    card, 3)
+    whole, whole_s = ops.wkv6(r, k, v, w, u, s0)
+    s, outs = s0, []
+    for t in range(r.shape[1]):         # decode: one launch per token
+        o, s = ops.wkv6(*(x[:, t:t + 1].contiguous() for x in (r, k, v, w)),
+                        u, s)
+        outs.append(o)
+    torch.testing.assert_close(torch.cat(outs, dim=1), whole, **WKV_TOL)
+    torch.testing.assert_close(s, whole_s, **WKV_TOL)
+    parts, parts_s = ops.wkv6(r, k, v, w, u, s0, seq_chunk=7)
+    torch.testing.assert_close(parts, whole, **WKV_TOL)
+    torch.testing.assert_close(parts_s, whole_s, **WKV_TOL)
+
+
+def test_recurrent_wrappers_refuse_bad_input(card):
+    a = torch.zeros(1, 4, 8, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        decay_scan.decay_scan_cuda(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        decay_scan.decay_scan_cuda(a, a.cpu())
+    r = torch.zeros(1, 4, 2, 80, device=card)
+    with pytest.raises(ValueError, match="at most|\\[1, 64\\]"):
+        wkv6.wkv6_cuda(r, r, r, r, torch.zeros(2, 80, device=card))
+    r = torch.zeros(1, 4, 2, 8, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        wkv6.wkv6_cuda(r, r, r, r.bfloat16(), torch.zeros(2, 8, device=card))

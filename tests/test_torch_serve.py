@@ -29,7 +29,8 @@ CPU = "cpu"
 LOGIT_TOL = dict(rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["qwen3-0.6b", "pnpcoin-demo"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "pnpcoin-demo", "rwkv6-7b",
+                                  "recurrentgemma-2b"])
 def test_configs_are_copies_of_the_reference(name):
     cfg, jcfg = base.get_config(name), jbase.get_config(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -40,21 +41,38 @@ def test_configs_are_copies_of_the_reference(name):
 
 
 def _slice_config(name):
+    """(port config, reference config, prompt length) of a test model."""
+    if name == "rwkv6-7b-reduced":
+        cfg = base.reduced(base.get_config("rwkv6-7b"))
+        assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.wkv_head_dim) == \
+            ("ssm", 2, 256, 32)
+        return cfg, jbase.reduced(jbase.get_config("rwkv6-7b")), 70
+    if name == "recurrentgemma-2b-reduced-5":
+        # 5 layers: one (rec, rec, attn) group and two rest layers; the
+        # prompt is longer than the reduced window of 64, so the ring cache
+        # rolls and the window masks
+        cfg, jcfg = (dataclasses.replace(b.reduced(b.get_config(
+            "recurrentgemma-2b")), n_layers=5) for b in (base, jbase))
+        assert (cfg.family, cfg.window, cfg.n_heads, cfg.n_kv_heads) == \
+            ("hybrid", 64, 8, 1)
+        return cfg, jcfg, 70
     if name == "qwen3-0.6b-reduced":
         cfg = base.reduced(base.get_config("qwen3-0.6b"))
         assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads) == \
             (2, 256, 8, 8)
-        return cfg, jbase.reduced(jbase.get_config("qwen3-0.6b"))
+        return cfg, jbase.reduced(jbase.get_config("qwen3-0.6b")), 12
     cfg = base.get_config(name)
     assert (cfg.n_heads, cfg.n_kv_heads, cfg.qk_norm,
             cfg.tie_embeddings, cfg.dtype) == (8, 4, True, True, "float32")
-    return cfg, jbase.get_config(name)
+    return cfg, jbase.get_config(name), 12
 
 
-@pytest.mark.parametrize("name", ["qwen3-0.6b-reduced", "pnpcoin-demo"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b-reduced", "pnpcoin-demo",
+                                  "rwkv6-7b-reduced",
+                                  "recurrentgemma-2b-reduced-5"])
 def test_prefill_and_decode_match_reference(name):
-    cfg, jcfg = _slice_config(name)
-    B, S, steps = 2, 12, 8
+    cfg, jcfg, S = _slice_config(name)
+    B, steps = 2, 8
     jmodel, model = jbuild(jcfg), build_model(cfg)
     jparams = jmodel.init(jax.random.key(0))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), device=CPU)
@@ -126,6 +144,16 @@ def test_serve_main_runs_on_cpu_and_prints_its_three_lines(capsys):
     assert torch.isfinite(res.last_logits).all()
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_serve_main_runs_the_recurrent_archs_on_cpu(arch, capsys):
+    res = serve.main(["--device", "cpu", "--arch", arch, "--reduced", "1",
+                      "--batch", "2", "--prompt-len", "70",
+                      "--new-tokens", "3"])
+    assert capsys.readouterr().out.startswith(f"arch={arch}-smoke batch=2")
+    assert res.tokens.shape == (2, 3) and int(res.tokens.max()) < 1024
+    assert torch.isfinite(res.last_logits).all()
+
+
 def test_serve_needs_a_card_unless_told_otherwise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -135,13 +163,14 @@ def test_serve_needs_a_card_unless_told_otherwise(monkeypatch):
 
 def test_other_families_name_their_roadmap_item():
     cfg = dataclasses.replace(base.reduced(base.get_config("qwen3-0.6b")),
-                              family="ssm")
+                              family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(cfg)
 
 
 def test_serving_modules_import_neither_jax_nor_the_reference():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.convert;"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
+            "repro_torch.models.rwkv6, repro_torch.models.rglru;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
