@@ -7,13 +7,16 @@ On one CUDA card it:
   1. reports the card, its power limit and the software, and builds the
      hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
   2. holds each kernel against its plain PyTorch version on the card: the
-     hash kernels exactly (integer work) and against hashlib, flash
-     attention within 2e-4 (float32) and 2e-2 (bfloat16) over head dims
+     hash kernels exactly (integer work) and against hashlib, both flash
+     attention kernels (the tensor-core one for bf16 at head dims 64-256,
+     the CUDA-core one for the rest and, on the same bf16 inputs, for
+     comparison) within 2e-4 (float32) and 2e-2 (bfloat16) over head dims
      32-256, GQA and MQA groups, causal or not, local windows and ragged
-     lengths (and in float32 at recurrentgemma's served prefill shape),
-     the decay scan within 1e-5 and WKV-6 within 1e-4 (relative
-     plus absolute); then times kernels, plain versions and, for
-     attention, PyTorch's SDPA as a yardstick, at the main paths' shapes;
+     lengths (and at recurrentgemma's served prefill shape), the decay
+     scan within 1e-5 and WKV-6 within 1e-4 (relative plus absolute);
+     then times kernels, plain versions and, for attention, PyTorch's SDPA
+     as a yardstick, at the main paths' shapes (the two flash kernels and
+     SDPA in turns);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -24,10 +27,11 @@ On one CUDA card it:
      weights from a fixed seed): qwen3-0.6b (prompt 2048; flash attention),
      rwkv6-7b (prompt 2048; WKV-6 in prefill and decode) and
      recurrentgemma-2b (prompt 4096; decay scan and windowed flash
-     attention). Each path's launch counts must equal its layer counts,
-     its first and last launch of each kernel must equal the plain
-     version on the same inputs, and a reduced float32 model served on
-     the card and on the CPU must agree;
+     attention), bf16 attention on the tensor-core kernel. Each path's
+     launch counts must equal its layer counts, its first and last launch
+     of each kernel must equal the plain version on the same inputs, and a
+     reduced float32 model served on the card (its attention on the
+     CUDA-core kernel, launches counted) and on the CPU must agree;
   6. checks each kernel's launch count from its own path and that the
      verifier's hashlib fallback never fired, and prints the kernel table.
 Each phase prints one JSON line. The last line is the result. Any failure
@@ -70,8 +74,9 @@ BF16_FLOPS_S = 989e12
 # float32 outside the tensor cores (data sheet): the recurrences' rate
 F32_FLOPS_S = 67e12
 # instantiations in the library: SHA-256 3 (raw/bswap), Merkle 1, flash
-# 4 head dims x 2 dtypes, WKV-6 5 row counts x 2 dtypes, decay scan 1
-N_KERNEL_INSTANCES = 3 + 1 + 8 + 10 + 1
+# 4 head dims x 2 dtypes, tensor-core flash 3 head dims (bf16), WKV-6 5 row
+# counts x 2 dtypes, decay scan 1
+N_KERNEL_INSTANCES = 3 + 1 + 8 + 3 + 10 + 1
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -106,32 +111,61 @@ def kernel_name(mangled: str) -> str:
     template arguments."""
     import re
     found = re.search(r"(sha256_rows_kernel|merkle_level_kernel|"
-                      r"flash_fwd_kernel|wkv6_kernel|decay_scan_kernel)",
-                      mangled)
+                      r"flash_fwd_kernel|flash_tc_kernel|wkv6_kernel|"
+                      r"decay_scan_kernel)", mangled)
     check(found is not None, f"known kernel name in {mangled}")
     name = found[1]
     flags = re.search(r"ILb(\d)ELb(\d)E", mangled)
     if flags:
         name += f"<raw={flags[1]},bswap={flags[2]}>"
     targs = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E", mangled)
-    if targs:
+    hd = re.search(r"ILi(\d+)E", mangled)
+    if name == "flash_tc_kernel":
+        name += f"<bf16,hd={hd[1]}>"
+    elif targs:
         size = "kpt" if name == "wkv6_kernel" else "hd"
         name += f"<{'f32' if targs[1] == 'f' else 'bf16'},{size}={targs[2]}>"
     return name
 
 
 def ptxas_usage(log: str) -> dict:
-    """Registers, barriers and spills of each kernel, from ``-Xptxas -v``."""
+    """Registers, barriers and spills of each kernel, from ``-Xptxas -v``,
+    and ptxas's notes of lost performance (serialised wgmma and the
+    like), by source file."""
     import re
-    usage, name = {}, None
+    usage, name, notes, source = {}, None, {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif entry:
             name = kernel_name(entry[1])
+        elif re.search(r"\(C7\d\d\d\)", line):
+            notes.setdefault(source, []).append(line.strip()[:200])
         elif name and ("registers" in line or "spill" in line):
             usage.setdefault(name, []).append(
                 line.split(":", 1)[-1].strip())
-    return usage
+    return {"kernels": usage, "performance_notes": notes}
+
+
+def flash_tc_resources() -> dict:
+    """Registers, dynamic shared memory and local memory (spills) of each
+    instantiation of the tensor-core flash kernel, as the runtime reports
+    them for the built library."""
+    import ctypes
+    from repro_torch.kernels import native
+    lib, out = native.library(), {}
+    for hd in (64, 128, 256):
+        regs, smem, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = lib.pnp_flash_attention_tc_info(hd, ctypes.byref(regs),
+                                             ctypes.byref(smem),
+                                             ctypes.byref(local))
+        check(rc == 0, f"flash_tc_kernel<hd={hd}> attributes ({rc})")
+        out[f"flash_tc_kernel<bf16,hd={hd}>"] = {
+            "registers": regs.value, "dynamic_shared_bytes": smem.value,
+            "local_bytes": local.value}
+        check(local.value == 0, f"flash_tc_kernel<hd={hd}> spills nothing")
+    return out
 
 
 def sass_counts(lib: Path) -> dict:
@@ -168,27 +202,71 @@ def sass_counts(lib: Path) -> dict:
             for name, c in ops.items()}
 
 
-def cuda_ms(fn, reps=10):
-    """Median of ``reps`` timed calls, CUDA events, after one warm-up."""
+def in_turns(fns: dict, rounds: int = 2) -> dict:
+    """Each function of ``fns`` timed by ``cuda_ms`` in turns (a b c, then
+    c b a, ...); the median of its rounds."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(cuda_ms(fns[name]))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def cuda_ms(fn, reps=10, rounds=3):
+    """A launch's device time: CUDA events around ``reps`` calls in a row
+    (so the host's time to issue one call hides behind the last one's
+    run), over ``reps``; the median of ``rounds`` such runs, after one
+    warm-up call."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
+def _flash_both(q, k, v, want, label, worst, **kw) -> None:
+    """The flash call the path makes (``flash_attention_cuda``, which picks
+    the kernel by dtype and head dim) against the plain version, its
+    launch counted on the kernel it must take; and for bf16 inputs the
+    tensor-core kernel takes, the CUDA-core kernel on the same inputs too.
+    Records each kernel's largest error in ``worst``."""
+    import torch
+    from repro_torch.kernels import flash_attention, flash_attention_tc
+    dtype = str(q.dtype).split(".")[1]
+    tol = FLASH_TOL[dtype]
+    tc = flash_attention.kernel_for(q.dtype, q.shape[-1]) == "tensor_core"
+    used = flash_attention_tc if tc else flash_attention
+    runs = {"tensor_core" if tc else "cuda_core":
+            flash_attention.flash_attention_cuda}
+    if tc:
+        runs["cuda_core"] = flash_attention.flash_attention_cuda_core
+    for kernel, fn in runs.items():
+        before = used.launches
+        got = fn(q, k, v, **kw).float()
+        if fn is flash_attention.flash_attention_cuda:
+            check(used.launches == before + 1,
+                  f"flash {label}: launched the {kernel} kernel")
+        err = float((got - want).abs().max())
+        key = f"{kernel}/{dtype}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(torch.allclose(got, want, rtol=tol, atol=tol),
+              f"flash {kernel} {label} vs plain ({err})")
+
+
 def flash_vs_plain(dev) -> dict:
-    """The flash kernel against its plain version: head dims 32, 64, 128;
-    GQA groups 1 and 2; causal and not; S = T in {33, 1000, 2048} and
-    S != T; float32 and bfloat16; and the large equal-score case."""
+    """Both flash kernels against their plain version: head dims 32, 64,
+    128; GQA groups 1 and 2; causal and not; S = T in {33, 1000, 2048} and
+    S != T; float32 and bfloat16; the reduced float32 models' own calls
+    (hd 32, batch 2, prompt 100); and the large equal-score case."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -196,114 +274,139 @@ def flash_vs_plain(dev) -> dict:
     cases = [(hd, g, causal, n, n) for hd in (32, 64, 128) for g in (1, 2)
              for causal in (True, False) for n in (33, 1000, 2048)]
     cases += [(hd, 2, False, 700, 1500) for hd in (32, 64, 128)]
-    max_err = {}
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        tol, worst = FLASH_TOL[name], 0.0
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
         for hd, g, causal, n_q, n_k in cases:
-            def randn(*shape):
-                return torch.randn(shape, generator=gen, device=dev).to(dtype)
             q, k, v = randn(2, n_q, 2 * g, hd), randn(2, n_k, 2, hd), \
                 randn(2, n_k, 2, hd)
-            got = flash_attention_cuda(q, k, v, causal=causal).float()
             want = ref.flash_attention_ref(q, k, v, causal=causal).float()
-            worst = max(worst, float((got - want).abs().max()))
-            check(torch.allclose(got, want, rtol=tol, atol=tol),
-                  f"flash {name} hd={hd} G={g} causal={causal} S={n_q} "
-                  f"T={n_k} vs plain")
-        max_err[name] = worst
+            _flash_both(q, k, v, want, f"{dtype} hd={hd} G={g} causal="
+                        f"{causal} S={n_q} T={n_k}", worst, causal=causal)
+    # the reduced float32 serve runs: qwen3-0.6b's 8 heads over 8 and
+    # recurrentgemma-2b's 8 over 1 within a window of 64, at hd 32
+    for kv, window in ((8, 0), (1, 64)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev) for shape in
+                   ((2, 100, 8, 32), (2, 100, kv, 32), (2, 100, kv, 32)))
+        want = ref.flash_attention_ref(q, k, v, causal=True,
+                                       window=window).float()
+        _flash_both(q, k, v, want, f"reduced-model call Kv={kv} window="
+                    f"{window}", worst, causal=True, window=window)
     q = torch.full((1, 32, 1, 32), 30.0, device=dev)
     out = flash_attention_cuda(q, q.clone(), torch.ones_like(q), causal=True)
     check(bool(torch.isfinite(out).all()) and torch.allclose(
         out, torch.ones_like(out), rtol=1e-5, atol=0),
         "flash large equal scores give 1")
-    return {"cases": 2 * len(cases) + 1, "max_abs_err": max_err,
+    return {"cases": 2 * len(cases) + 3, "max_abs_err": worst,
             "tolerance": FLASH_TOL, "stability_equal_scores": True}
 
 
-def flash_times(dev) -> dict:
-    """Kernel, plain version and SDPA (the yardstick, never on the path)
-    at the serve shape, and the bound."""
+def _flash_timing(q, k, v, sdpa, pairs, **kw) -> dict:
+    """The tensor-core kernel, the CUDA-core kernel on the same bf16 inputs
+    and SDPA (the yardstick, never on the path), timed in turns in this
+    call; the plain version; the bound (4 hd flops a (query, key) pair in
+    the band, an FMA as two, at the bf16 peak; q, k, v and out once at the
+    HBM rate) and each one's TFLOP/s."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda_core
+    from repro_torch.kernels.flash_attention_tc import flash_attention_tc_cuda
+    B, S, H, hd = q.shape
+    out = flash_attention_tc_cuda(q, k, v, **kw)
+    check(torch.equal(out, flash_attention_tc_cuda(q, k, v, **kw)),
+          "tensor-core flash kernel equal from run to run")
+    core = flash_attention_cuda_core(q, k, v, **kw)
+    check(torch.equal(core, flash_attention_cuda_core(q, k, v, **kw)),
+          "CUDA-core flash kernel equal from run to run")
+    check(torch.allclose(sdpa().transpose(1, 2).float(), out.float(),
+                         rtol=2e-2, atol=2e-2)
+          and torch.allclose(core.float(), out.float(), rtol=2e-2,
+                             atol=2e-2),
+          "SDPA and the CUDA-core kernel agree with the tensor-core kernel")
+    del out, core
+    ms = in_turns({
+        "tensor_core": lambda: flash_attention_tc_cuda(q, k, v, **kw),
+        "cuda_core": lambda: flash_attention_cuda_core(q, k, v, **kw),
+        "sdpa": sdpa})
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                       reps=3, rounds=1)
+    flops = 4 * hd * pairs * B * H
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
+    bound = max(t_ops, t_bytes) * 1e3
+    return {"ms": ms["tensor_core"], "cuda_core_ms": ms["cuda_core"],
+            "plain_ms": plain_ms, "library_ms": ms["sdpa"],
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "pairs_per_bh": pairs,
+            "bound_arithmetic": f"max({flops:.4g} flops / 989e12, "
+                                f"{nbytes:.4g} B / 3.35e12) = "
+                                f"max({t_ops * 1e3:.4g}, "
+                                f"{t_bytes * 1e3:.4g}) ms",
+            "tflops_per_s": {k: flops / (t * 1e-3) / 1e12
+                             for k, t in ms.items()},
+            "share_of_bound": {k: bound / t for k, t in ms.items()}}
+
+
+def flash_times(dev) -> dict:
+    """At qwen3-0.6b's served prefill shape: both flash kernels and SDPA in
+    turns, the plain version, and the bound."""
+    import torch
     B, S, H, Kv, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
     gen = torch.Generator(device=dev).manual_seed(20262)
     q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
     k = torch.randn(B, S, Kv, hd, generator=gen, device=dev).bfloat16()
     v = torch.randn(B, S, Kv, hd, generator=gen, device=dev).bfloat16()
-    out = flash_attention_cuda(q, k, v, causal=True)
-    check(torch.equal(out, flash_attention_cuda(q, k, v, causal=True)),
-          "flash kernel equal from run to run")
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
-    check(torch.allclose(sdpa().transpose(1, 2).float(), out.float(),
-                         rtol=2e-2, atol=2e-2), "SDPA agrees with the kernel")
-    library_ms = cuda_ms(sdpa)
-    # 4 hd flops per (query, key) pair (QK^T and PV, an FMA as two), over
-    # the S (S + 1) / 2 causal pairs of each (b, h), at the bf16 peak; the
-    # bytes of q, k, v and out, each once, at the HBM rate
-    pairs = S * (S + 1) // 2
-    flops = 4 * hd * pairs * B * H
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    t_ops, t_bytes = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
     return {"shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal",
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.nn.functional.scaled_dot_product_attention",
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "bound_arithmetic": f"max({flops:.4g} flops / 989e12, "
-                                f"{nbytes:.4g} B / 3.35e12) = "
-                                f"max({t_ops * 1e3:.4g}, "
-                                f"{t_bytes * 1e3:.4g}) ms",
-            "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+            **_flash_timing(q, k, v, sdpa, S * (S + 1) // 2, causal=True)}
 
 
 def flash_window_vs_plain(dev) -> dict:
-    """The flash kernel's local window at recurrentgemma's head shape (hd
+    """Both flash kernels' local window at recurrentgemma's head shape (hd
     256, ten query heads over one KV head): window 0, 64 and 2048, ragged
     S = T in {33, 1000, 2500} at batch 2, float32 and bfloat16; and the
     served prefill's own shape (batch 8, S = T 4096, window 2048) in
-    float32, where the tolerance is small against the outputs."""
+    float32 and bfloat16."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
     gen = torch.Generator(device=dev).manual_seed(20263)
-    worst = {}
+    worst, served_out = {}, {}
     cases = [(2, w, n) for w in (0, 64, 2048) for n in (33, 1000, 2500)]
     served = (SERVE_BATCH, 2048, RG_PROMPT)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        tol, worst[name] = FLASH_TOL[name], 0.0
-        for batch, window, n in cases + [served] * (dtype == torch.float32):
+        for batch, window, n in cases + [served]:
             def randn(*shape):
                 return torch.randn(shape, generator=gen, device=dev).to(dtype)
             q, k, v = randn(batch, n, 10, 256), randn(batch, n, 1, 256), \
                 randn(batch, n, 1, 256)
-            got = flash_attention_cuda(q, k, v, causal=True,
-                                       window=window).float()
             want = ref.flash_attention_ref(q, k, v, causal=True,
                                            window=window).float()
-            worst[name] = max(worst[name], float((got - want).abs().max()))
-            check(torch.allclose(got, want, rtol=tol, atol=tol),
-                  f"flash {name} hd=256 G=10 B={batch} window={window} "
-                  f"S=T={n} vs plain")
+            seen = dict(worst)
+            worst.clear()
+            _flash_both(q, k, v, want, f"{name} hd=256 G=10 B={batch} "
+                        f"window={window} S=T={n}", worst, causal=True,
+                        window=window)
             if (batch, window, n) == served:
-                served_err = float((got - want).abs().max())
-                served_rms = float(want.square().mean().sqrt())
-            del q, k, v, got, want
+                served_out[name] = {
+                    "max_abs_err": dict(worst),
+                    "rms_of_plain": float(want.square().mean().sqrt())}
+            for key, err in seen.items():
+                worst[key] = max(worst.get(key, 0.0), err)
+            del q, k, v, want
             torch.cuda.empty_cache()
-    return {"cases": 2 * len(cases) + 1, "max_abs_err": worst,
+    return {"cases": 2 * len(cases) + 2, "max_abs_err": worst,
             "tolerance": FLASH_TOL,
-            "served_shape_float32": {
+            "served_shape": {
                 "shape": f"B={served[0]} S=T={served[2]} H=10 Kv=1 hd=256 "
-                         f"window={served[1]}",
-                "max_abs_err": served_err, "rms_of_plain": served_rms}}
+                         f"window={served[1]}", **served_out}}
 
 
 def decay_vs_plain(dev) -> dict:
@@ -396,13 +499,12 @@ def wkv_vs_plain(dev) -> dict:
 
 
 def recurrent_times(dev) -> dict:
-    """The decay scan, WKV-6 and windowed flash kernels, their plain
-    versions and (flash) SDPA, at the shapes the serving paths give them,
-    with each bound."""
+    """The decay scan, WKV-6 and windowed flash kernels (both flash kernels,
+    in turns with SDPA), their plain versions, at the shapes the serving
+    paths give them, with each bound."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.decay_scan import decay_scan_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.wkv6 import wkv6_cuda
     gen = torch.Generator(device=dev).manual_seed(20266)
     out = {}
@@ -413,7 +515,8 @@ def recurrent_times(dev) -> dict:
     b = torch.randn((B, S, C), generator=gen, device=dev)
     h0 = torch.randn((B, C), generator=gen, device=dev)
     ms = cuda_ms(lambda: decay_scan_cuda(a, b, h0))
-    plain_ms = cuda_ms(lambda: ref.decay_scan_ref(a, b, h0), reps=3)
+    plain_ms = cuda_ms(lambda: ref.decay_scan_ref(a, b, h0), reps=3,
+                       rounds=1)
     # a, b read and h written once (float32), h0 read and h_last written;
     # one FMA (2 flops) per element
     nbytes = 4 * (3 * a.numel() + 2 * h0.numel())
@@ -436,7 +539,8 @@ def recurrent_times(dev) -> dict:
     r, k, v, w, u, s0 = _wkv_inputs((B, S, H, K, V), torch.bfloat16, gen,
                                     dev)
     ms = cuda_ms(lambda: wkv6_cuda(r, k, v, w, u, s0))
-    plain_ms = cuda_ms(lambda: ref.wkv6_ref(r, k, v, w, u, s0), reps=3)
+    plain_ms = cuda_ms(lambda: ref.wkv6_ref(r, k, v, w, u, s0), reps=3,
+                       rounds=1)
     # bytes: r, k, v (bf16), w (f32) read and o (f32) written once, u, s0
     # read and s_final written. flops the function needs, per step: per
     # (k, v) k v, the FMA w S + k v and the FMA r S (5); per k u k and the
@@ -468,11 +572,6 @@ def recurrent_times(dev) -> dict:
     q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
     k = torch.randn(B, S, Kv, hd, generator=gen, device=dev).bfloat16()
     v = torch.randn(B, S, Kv, hd, generator=gen, device=dev).bfloat16()
-    got = flash_attention_cuda(q, k, v, causal=True, window=window)
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
-                                              window=window))
-    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
-        q, k, v, causal=True, window=window), reps=3)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     pos = torch.arange(S, device=dev)
     band = (pos[None, :] <= pos[:, None]) & \
@@ -481,27 +580,13 @@ def recurrent_times(dev) -> dict:
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=band, enable_gqa=True)
-    check(torch.allclose(sdpa().transpose(1, 2).float(), got.float(),
-                         rtol=2e-2, atol=2e-2),
-          "SDPA agrees with the windowed kernel")
-    library_ms = cuda_ms(sdpa)
-    pairs = int(band.sum())
-    flops = 4 * hd * pairs * B * H
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    t_o, t_b = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
     out["flash_attention_rg"] = {
         "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal "
                  f"window={window}",
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library": "torch.nn.functional.scaled_dot_product_attention "
                    "(boolean band mask, enable_gqa)",
-        "bound_ms": max(t_o, t_b) * 1e3,
-        "bound_by": "operations" if t_o > t_b else "bytes",
-        "pairs_per_bh": pairs,
-        "bound_arithmetic": f"max({flops:.4g} flops / 989e12, "
-                            f"{nbytes:.4g} B / 3.35e12) = "
-                            f"max({t_o * 1e3:.4g}, {t_b * 1e3:.4g}) ms",
-        "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+        **_flash_timing(q, k, v, sdpa, int(band.sum()), causal=True,
+                        window=window)}
     return out
 
 
@@ -510,14 +595,29 @@ def recurrent_times(dev) -> dict:
 # place after the call (a recurrent state in the cache), that argument's
 # index, so a recorded launch keeps the value it was given.
 SERVE_KERNELS = {"flash_attention": None, "wkv6": 5, "decay_scan": 2}
+# each kernel's launch counter and the ``kernels.ops`` entry that reaches it
+# (``ops.flash_attention`` reaches both flash kernels, by dtype and head dim)
+ENTRY_OF = {"flash_attention": "flash_attention",
+            "flash_attention_tc": "flash_attention", "wkv6": "wkv6",
+            "decay_scan": "decay_scan"}
 
 
 def _launch_counters():
-    from repro_torch.kernels import (decay_scan, flash_attention, merkle,
-                                     sha256, wkv6)
+    from repro_torch.kernels import (decay_scan, flash_attention,
+                                     flash_attention_tc, merkle, sha256, wkv6)
     return {"sha256": sha256, "merkle": merkle,
-            "flash_attention": flash_attention, "wkv6": wkv6,
+            "flash_attention": flash_attention,
+            "flash_attention_tc": flash_attention_tc, "wkv6": wkv6,
             "decay_scan": decay_scan}
+
+
+def _by_entry(per_kernel: dict) -> dict:
+    """Launch counts by kernel -> by the ``kernels.ops`` entry."""
+    out = {}
+    for name, n in per_kernel.items():
+        if name in ENTRY_OF:
+            out[ENTRY_OF[name]] = out.get(ENTRY_OF[name], 0) + n
+    return out
 
 
 def _against_plain(name, args, kw, out) -> float:
@@ -545,15 +645,17 @@ def _against_plain(name, args, kw, out) -> float:
 
 
 def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
-               per_decode: dict, small_layers: int = 0) -> dict:
+               per_decode: dict, small_counts: dict,
+               small_layers: int = 0) -> dict:
     """One serving path at full width and depth through
     ``repro_torch.launch.serve.main``, with every kernel's launch count
     read around it and checked against ``per_prefill`` + ``per_decode`` x
     the decode steps (0 for a kernel not named); the first and last launch
     of each kernel held against its plain version; then a warm run timed,
     with the kernels of its prefill timed by CUDA events; then a reduced
-    float32 model (``small_layers`` layers if given) served on the card
-    and on the CPU from the same weights."""
+    float32 model (``small_layers`` layers if given) served on the card,
+    its launch counts read around it and checked against
+    ``small_counts``, and on the CPU from the same weights."""
     import dataclasses
 
     import torch
@@ -609,9 +711,10 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
     check(bool(torch.isfinite(res.last_logits).all()), "logits finite")
     check(res.last_logits.shape == (SERVE_BATCH, 1, cfg.padded_vocab),
           "logits shape")
-    launch_err = {}
+    launch_err, entry_counts = {}, _by_entry(counts)
     for name, calls in seen.items():
-        check(len(calls) == (2 if counts[name] > 1 else counts[name]),
+        n = entry_counts.get(name, 0)
+        check(len(calls) == (2 if n > 1 else n),
               f"{arch}: first and last {name} launch recorded")
         launch_err[name] = [_against_plain(name, *c) for c in calls]
         torch.cuda.empty_cache()
@@ -623,7 +726,8 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
     torch.cuda.empty_cache()
 
     # warm run: the same serve call, the kernels of its prefill timed
-    events = {name: [] for name in per_prefill}
+    entry_prefill, entry_want = _by_entry(per_prefill), _by_entry(want)
+    events = {name: [] for name in entry_prefill}
 
     def timing(name):
         def call(*args, **kw):
@@ -649,10 +753,10 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
           f"{arch}: warm run generates the same tokens")
     # prefill launches come first, then one set per decode step
     kernel_ms = {name: sum(a.elapsed_time(b)
-                           for a, b in events[name][:per_prefill[name]])
-                 for name in per_prefill}
-    check(all(len(events[name]) == want[name] for name in per_prefill),
-          f"{arch}: warm run launch counts")
+                           for a, b in events[name][:entry_prefill[name]])
+                 for name in entry_prefill}
+    check(all(len(events[name]) == entry_want[name]
+              for name in entry_prefill), f"{arch}: warm run launch counts")
     timing_out = {
         "warm_prefill_ms": warm.prefill_s * 1e3,
         "warm_kernel_ms_in_prefill": kernel_ms,
@@ -661,9 +765,9 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
         "warm_decode_ms_per_token": warm.decode_s_per_token * 1e3,
         "warm_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     if "wkv6" in per_decode:
+        decode_events = events["wkv6"][entry_prefill["wkv6"]:]
         timing_out["warm_wkv6_ms_per_decode_step"] = sum(
-            a.elapsed_time(b) for a, b in events["wkv6"][per_prefill["wkv6"]:]
-        ) / (SERVE_NEW - 1)
+            a.elapsed_time(b) for a, b in decode_events) / (SERVE_NEW - 1)
     del warm, events
     torch.cuda.empty_cache()
 
@@ -677,7 +781,15 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
         return {k: to(v, device) if isinstance(v, dict) else v.to(device)
                 for k, v in tree.items()}
     kw = dict(batch=2, prompt_len=100, new_tokens=8, seed=1)
+    for mod in counters.values():
+        mod.launches = 0
     on_card = serve.serve(small, device=dev, params=to(params, dev), **kw)
+    torch.cuda.synchronize()
+    small_launches = {name: mod.launches for name, mod in counters.items()
+                      if mod.launches or name in small_counts}
+    check(small_launches == small_counts,
+          f"reduced {arch}: launch counts {small_launches}, expected "
+          f"{small_counts}")
     on_cpu = serve.serve(small, device="cpu", params=params, **kw)
     small_err = float((on_card.last_logits.cpu() - on_cpu.last_logits)
                       .abs().max())
@@ -691,6 +803,7 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
             "launch_vs_plain_max_abs_err": {
                 k: v for k, v in launch_err.items() if v},
             "reduced_model": f"{small.name}, {small.n_layers} layers",
+            "reduced_counts": small_launches,
             "reduced_card_vs_cpu_max_abs_err": small_err}
 
 
@@ -729,6 +842,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": build_s,
           "ptxas": ptxas_usage(log), "sass": sass_counts(lib),
+          "flash_tc_resources": flash_tc_resources(),
           "counted_ops": {"compression": OPS_COMPRESSION,
                           "merkle_parent": OPS_COMPRESSION
                           + OPS_PAD_COMPRESSION}})
@@ -805,8 +919,13 @@ def main() -> int:
     emit({"phase": "decay_scan_vs_plain", **decay})
     wkv = wkv_vs_plain(dev)
     emit({"phase": "wkv6_vs_plain", **wkv})
-    max_err["flash_attention"] = max(*flash["max_abs_err"].values(),
-                                     *flash_win["max_abs_err"].values())
+    flash_err = {**flash["max_abs_err"]}
+    for key, err in flash_win["max_abs_err"].items():
+        flash_err[key] = max(flash_err.get(key, 0.0), err)
+    max_err["flash_attention"] = max(
+        err for key, err in flash_err.items() if key.startswith("cuda_core"))
+    max_err["flash_attention_tc"] = max(
+        err for key, err in flash_err.items() if key.startswith("tensor_core"))
     max_err["decay_scan"] = decay["max_abs_err"]
     max_err["wkv6"] = wkv["max_abs_err"]
     emit({"phase": "kernels_vs_plain", "sha256": sha_rows,
@@ -814,7 +933,8 @@ def main() -> int:
                      "hashlib_2_16": True, "forest": "4 x 2**16"},
           "flash_attention": {"cases": flash["cases"] + flash_win["cases"],
                               "within_tolerance": True,
-                              "tolerance": FLASH_TOL},
+                              "tolerance": FLASH_TOL,
+                              "max_abs_err_by_kernel": flash_err},
           "decay_scan": {"cases": decay["cases"], "within_tolerance": True,
                          "tolerance": DECAY_TOL},
           "wkv6": {"cases": wkv["cases"], "within_tolerance": True,
@@ -834,7 +954,7 @@ def main() -> int:
                 ref.sha256_words_ref(msg)
             if bswap:
                 ref.sha256_words_ref(ref.bswap32(msg))
-        plain_ms = cuda_ms(plain, reps=3)
+        plain_ms = cuda_ms(plain, reps=3, rounds=1)
         b, by = bound_ms(WORD_BYTES * n * (w + 8 * outs),
                          n * nb * outs * OPS_COMPRESSION + bswap * n * w)
         return {"shape": f"N={n} W={w} raw={raw} bswap={bswap}", "ms": ms,
@@ -851,7 +971,7 @@ def main() -> int:
         width = (width + 1) // 2
         parents += width
     m_ms = cuda_ms(lambda: merkle._reduce(mrows, False))
-    m_plain = cuda_ms(lambda: plain_reduce(mrows), reps=3)
+    m_plain = cuda_ms(lambda: plain_reduce(mrows), reps=3, rounds=1)
     m_bound, m_by = bound_ms(WORD_BYTES * 8 * (leaves + width),
                              parents * (OPS_COMPRESSION + OPS_PAD_COMPRESSION))
     merkle_time = {"shape": f"(8, 1, {leaves}) -> width {width}",
@@ -971,17 +1091,22 @@ def main() -> int:
           "seconds": time.perf_counter() - t})
 
     # -- 5. serving at full width: qwen3-0.6b, rwkv6-7b, recurrentgemma-2b --
+    # bf16 attention at hd 128 and 256 takes the tensor-core kernel; the
+    # reduced float32 models (2 layers, 5 for recurrentgemma, hd 32, prompt
+    # 100, 8 new tokens) take the CUDA-core one
     served = {
         "qwen3-0.6b": serve_path(dev, "qwen3-0.6b", SERVE_PROMPT,
-                                 {"flash_attention": 28}, {}),
+                                 {"flash_attention_tc": 28}, {},
+                                 {"flash_attention": 2}),
         # WKV-6 in every layer, in prefill and at every decode step
         "rwkv6-7b": serve_path(dev, "rwkv6-7b", RWKV_PROMPT, {"wkv6": 32},
-                               {"wkv6": 32}),
+                               {"wkv6": 32}, {"wkv6": 2 + 7 * 2}),
         # 18 RG-LRU layers scan in prefill (decode steps them plainly) and
         # 8 local-attention layers; 5 reduced layers keep the rest layers
         "recurrentgemma-2b": serve_path(
             dev, "recurrentgemma-2b", RG_PROMPT,
-            {"decay_scan": 18, "flash_attention": 8}, {}, small_layers=5),
+            {"decay_scan": 18, "flash_attention_tc": 8}, {},
+            {"decay_scan": 4, "flash_attention": 1}, small_layers=5),
     }
     for res in served.values():
         emit(res)
@@ -990,12 +1115,32 @@ def main() -> int:
     check(counts["sha256"] > 0 and counts["merkle"] > 0,
           "both hash kernels launched on the mining path")
     check(counts["hashlib_fallbacks"] == 0, "hashlib fallback never fired")
-    check(all(counts[k] == 0 for k in SERVE_KERNELS),
+    check(all(counts[k] == 0 for k in ENTRY_OF),
           "no serving kernel launched on the mining path")
     chunk = sha_times[0]
     qwen, rg = served["qwen3-0.6b"]["counts"], \
         served["recurrentgemma-2b"]["counts"]
+    small_flash = {arch: res["reduced_counts"].get("flash_attention", 0)
+                   for arch, res in served.items()}
+    check(qwen["flash_attention_tc"] > 0 and rg["flash_attention_tc"] > 0
+          and all(small_flash[a] > 0 for a in ("qwen3-0.6b",
+                                                "recurrentgemma-2b")),
+          "each flash kernel launched on its serving path")
     flash_rg = rec_times["flash_attention_rg"]
+
+    def flash_row(name, source, kernel, launches, **extra):
+        ms_key = "ms" if kernel == "tensor_core" else "cuda_core_ms"
+        err = "flash_attention_tc" if kernel == "tensor_core" else \
+            "flash_attention"
+
+        def at(times):
+            return {"shape": times["shape"], "ms": times[ms_key],
+                    **{k: times[k] for k in ("plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+                    "tflops_per_s": times["tflops_per_s"][kernel]}
+        return row(name, err, source, "flash_attention.py:28", launches,
+                   at(flash_time), recurrentgemma_shape=at(flash_rg),
+                   **extra)
 
     def row(name, err, source, replaces, launches, times, **extra):
         return {"name": name, "route": "cuda",
@@ -1011,15 +1156,20 @@ def main() -> int:
         row("merkle_level", "merkle", "merkle.cu", "merkle.py:132",
             counts["merkle"], {**merkle_time, "library_ms": None},
             path="mining"),
-        row("flash_attention_fwd", "flash_attention", "flash_attention.cu",
-            "flash_attention.py:28",
-            qwen["flash_attention"] + rg["flash_attention"], flash_time,
-            path="serving qwen3-0.6b (28) and recurrentgemma-2b (8)",
-            launches_by_path={"qwen3-0.6b": qwen["flash_attention"],
-                              "recurrentgemma-2b": rg["flash_attention"]},
-            recurrentgemma_shape={k: flash_rg[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}),
+        flash_row("flash_attention_tc", "flash_attention_tc.cu",
+                  "tensor_core",
+                  qwen["flash_attention_tc"] + rg["flash_attention_tc"],
+                  path="serving qwen3-0.6b (28) and recurrentgemma-2b (8), "
+                       "bf16",
+                  launches_by_path={
+                      "qwen3-0.6b": qwen["flash_attention_tc"],
+                      "recurrentgemma-2b": rg["flash_attention_tc"]}),
+        flash_row("flash_attention_fwd", "flash_attention.cu", "cuda_core",
+                  sum(small_flash.values()),
+                  path="serving the reduced float32 qwen3-0.6b (2) and "
+                       "recurrentgemma-2b (1), hd 32; times on the bf16 "
+                       "inputs of the tensor-core row",
+                  launches_by_path=small_flash),
         row("decay_scan", "decay_scan", "decay_scan.cu", "decay_scan.py:21",
             rg["decay_scan"], rec_times["decay_scan"],
             path="serving recurrentgemma-2b"),

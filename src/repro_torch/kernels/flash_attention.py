@@ -1,67 +1,64 @@
-"""Binding of the hand-written CUDA flash-attention kernel
-(``csrc/flash_attention.cu``).
+"""Bindings of the hand-written CUDA flash-attention kernels, and the rule
+that chooses between them.
 
-It replaces the Pallas kernel of ``repro/kernels/flash_attention.py``:
+Both replace the Pallas kernel of ``repro/kernels/flash_attention.py``:
 the attention forward with an online softmax, float32 inside, causal by
-absolute position, optionally within a local window. It maps each query
-head to its KV head by index (GQA and MQA) and masks ragged S and T
-itself. ``kernels/ops.py`` sends CUDA tensors here
-and CPU tensors to ``ref.flash_attention_ref``.
+absolute position, optionally within a local window. Both map each query
+head to its KV head by index (GQA and MQA) and mask ragged S and T
+themselves. ``csrc/flash_attention_tc.cu`` runs bfloat16 at head dims 64,
+128 and 256 on the tensor cores (``flash_attention_tc``);
+``csrc/flash_attention.cu`` runs everything else (float32, and head dim
+32) on the CUDA cores. ``kernel_for`` is the rule, by dtype and head dim
+alone; there is no fallback from one kernel to the other.
+``kernels/ops.py`` sends CUDA tensors here and CPU tensors to
+``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import native
+from repro_torch.kernels import flash_attention_tc, native
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset (a run shows its path went through
-# the kernel by reading this; only the launch below adds to it).
+# Launches of the CUDA-core kernel since the last reset (a run shows its
+# path went through the kernel by reading this; only the launch below adds
+# to it). The tensor-core kernel counts in ``flash_attention_tc.launches``.
 launches = 0
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel ``flash_attention_cuda`` launches: "tensor_core" for
+    bfloat16 at head dims 64, 128 and 256, "cuda_core" for the rest."""
+    if dtype == torch.bfloat16 and head_dim in flash_attention_tc.HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, T, Kv, hd) on one CUDA card, contiguous,
     float32 or bfloat16 -> (B, S, H, hd) in q's dtype. ``window > 0``: query
-    s sees only keys t > s - window."""
+    s sees only keys t > s - window. Launches the kernel ``kernel_for``
+    names."""
+    if kernel_for(q.dtype, q.shape[-1]) == "tensor_core":
+        return flash_attention_tc.flash_attention_tc_cuda(
+            q, k, v, causal=causal, window=window)
+    return flash_attention_cuda_core(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_cuda_core(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool,
+                              window: int = 0) -> torch.Tensor:
+    """The CUDA-core kernel, at any dtype and head dim it takes: q (B, S, H,
+    hd); k, v (B, T, Kv, hd) on one CUDA card, contiguous, float32 or
+    bfloat16, hd in ``HEAD_DIMS`` -> (B, S, H, hd) in q's dtype."""
     global launches
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"flash_attention_cuda: {name} is on "
-                             f"{t.device}, expected a CUDA tensor")
-        if t.device != q.device:
-            raise ValueError("flash_attention_cuda: q, k, v on different "
-                             "devices")
-        if t.dtype not in _DTYPES or t.dtype != q.dtype:
-            raise TypeError(f"flash_attention_cuda: {name} is {t.dtype}; "
-                            "q, k, v must all be float32 or all bfloat16")
-        if t.dim() != 4:
-            raise ValueError(f"flash_attention_cuda: {name} has shape "
-                             f"{tuple(t.shape)}, expected 4 dims")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_cuda: {name} must be "
-                             "contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_cuda: {name} must start on "
-                             "a 16-byte boundary")
+    native.check_qkv("flash_attention_cuda_core", q, k, v, window, _DTYPES,
+                     HEAD_DIMS)
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, T, Kv, hd) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_cuda: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
-    if Kv < 1 or H % Kv:
-        raise ValueError(f"flash_attention_cuda: {H} heads over {Kv} KV "
-                         "heads")
-    if T < 1:
-        raise ValueError("flash_attention_cuda: no keys")
-    if window < 0:
-        raise ValueError(f"flash_attention_cuda: window {window} < 0")
     out = torch.empty_like(q)
     if B and S:
         with torch.cuda.device(q.device):
@@ -70,5 +67,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 B, S, T, H, Kv, hd, int(causal), int(window), _DTYPES[q.dtype],
                 native.stream_of(q))
         launches += 1
-        native.check_launch("flash_attention_cuda", rc)
+        native.check_launch("flash_attention_cuda_core", rc)
     return out

@@ -120,6 +120,11 @@ def library() -> ctypes.CDLL:
     lib.pnp_flash_attention_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,
                                             i32, i32, i32, i32, i32, i32, vp]
     lib.pnp_flash_attention_fwd.restype = ctypes.c_int
+    lib.pnp_flash_attention_tc_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,
+                                               i32, i32, i32, i32, i32, vp]
+    lib.pnp_flash_attention_tc_fwd.restype = ctypes.c_int
+    lib.pnp_flash_attention_tc_info.argtypes = [i32, vp, vp, vp]
+    lib.pnp_flash_attention_tc_info.restype = ctypes.c_int
     lib.pnp_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
                              i32, i32, i32, vp]
     lib.pnp_wkv6.restype = ctypes.c_int
@@ -138,6 +143,45 @@ def check_cuda_words(name: str, t: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: int, dtypes, head_dims) -> None:
+    """Raise unless q (B, S, H, hd) and k, v (B, T, Kv, hd) are contiguous
+    tensors of one dtype out of ``dtypes`` on one CUDA card, each starting
+    on a 16-byte boundary, with hd in ``head_dims``, H % Kv == 0, T >= 1
+    and ``window`` >= 0 (the flash-attention kernels' inputs)."""
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected a "
+                             "CUDA tensor")
+        if t.device != q.device:
+            raise ValueError(f"{name}: q, k, v on different devices")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            allowed = " or all ".join(str(d).split(".")[1] for d in dtypes)
+            raise TypeError(f"{name}: {arg} is {t.dtype}; q, k, v must all "
+                            f"be {allowed}")
+        if t.dim() != 4:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             "expected 4 dims")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte "
+                             "boundary")
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, T, Kv, hd) or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if hd not in head_dims:
+        raise ValueError(f"{name}: head_dim {hd} not in {tuple(head_dims)}")
+    if Kv < 1 or H % Kv:
+        raise ValueError(f"{name}: {H} heads over {Kv} KV heads")
+    if T < 1:
+        raise ValueError(f"{name}: no keys")
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -17,7 +17,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
-from repro_torch.kernels import flash_attention, ops, ref  # noqa: E402
+from repro_torch.kernels import (flash_attention, flash_attention_tc,  # noqa: E402
+                                 ops, ref)
 from repro_torch.models import attention, layers  # noqa: E402
 
 CPU = "cpu"
@@ -105,6 +106,29 @@ def test_flash_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention(q.to("meta"), q, q, causal=True)
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+    (torch.float32, 256, "cuda_core"), (torch.float32, 32, "cuda_core"),
+    (torch.float16, 128, "cuda_core")])
+def test_flash_dispatch_rule(dtype, hd, kernel):
+    """bfloat16 at head dims 64, 128 and 256 takes the tensor-core kernel;
+    everything else the CUDA-core kernel (which refuses what it does not
+    take, float16 among it)."""
+    assert flash_attention.kernel_for(dtype, hd) == kernel
+
+
+def test_tensor_core_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    before = flash_attention_tc.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_tc.flash_attention_tc_cuda(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_cuda(q, q, q, causal=True)
+    assert flash_attention_tc.launches == before
 
 
 # --------------------------------------------------------------------------

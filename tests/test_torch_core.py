@@ -384,8 +384,8 @@ def test_flops_estimate_counts_matrix_products_and_elementwise_work():
 
 def test_queue_pops_in_the_reference_order():
     """Collatz (no matrix product, low importance) against the matrix jash
-    (important): the reference publishes the matrix jash first, by a
-    margin of at least 4x in priority, and so must the port."""
+    (important): both RAs rank the matrix jash above collatz and publish
+    the two in the same order."""
     jc, tc = _pair(max_steps=64, importance=0.01)
     jm, tm = _matrix_pair(0.9)
     jra = jauth.RuntimeAuthority()
@@ -393,7 +393,7 @@ def test_queue_pops_in_the_reference_order():
     jprio = {j.name: jra.submit(j).priority for j in (jc, jm)}
     prio = {j.name: ra.submit(j).priority for j in (tc, tm)}
     hi, lo = sorted(jprio, key=jprio.get, reverse=True)
-    assert jprio[hi] >= 4 * jprio[lo], jprio
+    assert (hi, lo) == (jm.name, jc.name), jprio
     assert prio[hi] > prio[lo], prio
     assert [jra.publish_next()[0].name for _ in range(2)] == [hi, lo]
     assert [ra.publish_next()[0].name for _ in range(2)] == [hi, lo]

@@ -12,7 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (decay_scan, flash_attention,  # noqa: E402
-                                 merkle, ops, ref, sha256, wkv6)
+                                 flash_attention_tc, merkle, ops, ref, sha256,
+                                 wkv6)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +87,15 @@ FLASH_CASES += [(hd, 2, False, 700, 1500) for hd in (32, 64, 128)]
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
+def _flash_counters(dtype, hd):
+    """(the launch counter of the kernel a call must take, the other's):
+    the tensor-core kernel for bf16 at head dims 64, 128 and 256, the
+    CUDA-core kernel for the rest."""
+    if dtype == torch.bfloat16 and hd in (64, 128, 256):
+        return flash_attention_tc, flash_attention
+    return flash_attention, flash_attention_tc
+
+
 def _qkv(hd, g, s, t, dtype, card, seed, b=2, kv=2):
     gen = torch.Generator(device=card).manual_seed(seed)
 
@@ -99,10 +109,11 @@ def _qkv(hd, g, s, t, dtype, card, seed, b=2, kv=2):
 @pytest.mark.parametrize("hd,g,causal,s,t", FLASH_CASES)
 def test_flash_kernel_matches_plain_version(card, dtype, hd, g, causal, s, t):
     q, k, v = _qkv(hd, g, s, t, dtype, card, hd + 7 * s + t)
-    before = flash_attention.launches
+    used, other = _flash_counters(dtype, hd)
+    before, other_before = used.launches, other.launches
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert (used.launches, other.launches) == (before + 1, other_before)
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     tol = FLASH_TOL[dtype]
@@ -147,15 +158,70 @@ FLASH_WINDOW_CASES += [(32, 8, 1, 64, 200), (64, 2, 2, 100, 333),
 def test_flash_kernel_window_matches_plain_version(card, dtype, hd, g, kv,
                                                    window, n):
     q, k, v = _qkv(hd, g, n, n, dtype, card, hd + window + n, b=1, kv=kv)
-    before = flash_attention.launches
+    used, other = _flash_counters(dtype, hd)
+    before, other_before = used.launches, other.launches
     got = ops.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert (used.launches, other.launches) == (before + 1, other_before)
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert torch.equal(ops.flash_attention(q, k, v, causal=True,
                                            window=window), got)
+
+
+# The tensor-core kernel's edges at the two served head shapes, cut to one
+# batch row: qwen3-0.6b's (16 query heads over 8 KV heads, hd 128) and
+# recurrentgemma-2b's (10 over 1, hd 256, window 2048): (hd, G, Kv, causal,
+# window, S, T)
+FLASH_TC_EDGE_CASES = [
+    (128, 2, 8, True, 0, 1000, 1000),      # S not a multiple of 128 rows
+    (128, 2, 8, True, 0, 50, 50),          # T under one 128-key tile
+    (128, 2, 8, False, 0, 77, 1100),       # S != T, not causal
+    (128, 2, 8, False, 0, 1100, 100),      # T under one tile, S > T
+    (256, 10, 1, True, 2048, 2100, 2100),  # ragged S; window edge in tiles
+    (256, 10, 1, True, 2048, 40, 40),      # T under one 64-key tile
+    (256, 10, 1, False, 0, 300, 1000),     # S != T, not causal
+    (256, 10, 1, True, 1000, 1500, 1500),  # window 1000: edge mid-tile
+    (64, 2, 2, True, 100, 333, 333),       # hd 64, window 100
+]
+
+
+@pytest.mark.parametrize("hd,g,kv,causal,window,s,t", FLASH_TC_EDGE_CASES)
+def test_flash_tensor_core_kernel_edges(card, hd, g, kv, causal, window, s,
+                                        t):
+    q, k, v = _qkv(hd, g, s, t, torch.bfloat16, card, hd + window + s + t,
+                   b=1, kv=kv)
+    before, core = flash_attention_tc.launches, flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_tc.launches == before + 1
+    assert flash_attention.launches == core
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal,
+                                           window=window), got)
+
+
+def test_flash_tensor_core_wrapper_refuses_misaligned_views(card):
+    # a contiguous view that starts 2 bytes into its buffer: TMA needs a
+    # base address on a 16-byte boundary
+    buf = torch.zeros(1 + 64 * 2 * 64, dtype=torch.bfloat16, device=card)
+    q = buf[1:].view(1, 64, 2, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = flash_attention_tc.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_tc.flash_attention_tc_cuda(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.flash_attention(q, q, q, causal=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        z = torch.zeros(1, 8, 2, 64, device=card)
+        flash_attention_tc.flash_attention_tc_cuda(z, z, z, causal=True)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        z = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=card)
+        flash_attention_tc.flash_attention_tc_cuda(z, z, z, causal=True)
+    assert flash_attention_tc.launches == before
 
 
 DECAY_TOL = dict(rtol=1e-5, atol=1e-5)
