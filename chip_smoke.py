@@ -13,10 +13,15 @@ On one CUDA card it:
      comparison) within 2e-4 (float32) and 2e-2 (bfloat16) over head dims
      32-256, GQA and MQA groups, causal or not, local windows and ragged
      lengths (and at recurrentgemma's served prefill shape), the decay
-     scan within 1e-5 and WKV-6 within 1e-4 (relative plus absolute);
+     scan within 1e-5 and WKV-6 within 1e-4 (relative plus absolute, over
+     head sizes that cut through its 16 x 4 register tiles and sequence
+     lengths at the edges of its 16-step chunks);
      then times kernels, plain versions and, for attention, PyTorch's SDPA
      as a yardstick, at the main paths' shapes (the two flash kernels and
-     SDPA in turns);
+     SDPA in turns; the CUDA-core kernel also in float32, its own path, at
+     qwen3-0.6b's prefill shape and at pnpcoin-demo's, in turns with SDPA
+     on the same float32 inputs; WKV-6 also at a decode step, with events
+     around 10 launches and replayed from a CUDA graph);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -74,9 +79,9 @@ BF16_FLOPS_S = 989e12
 # float32 outside the tensor cores (data sheet): the recurrences' rate
 F32_FLOPS_S = 67e12
 # instantiations in the library: SHA-256 3 (raw/bswap), Merkle 1, flash
-# 4 head dims x 2 dtypes, tensor-core flash 3 head dims (bf16), WKV-6 5 row
-# counts x 2 dtypes, decay scan 1
-N_KERNEL_INSTANCES = 3 + 1 + 8 + 3 + 10 + 1
+# 4 head dims x 2 dtypes, tensor-core flash 3 head dims (bf16), WKV-6 2
+# dtypes, decay scan 1
+N_KERNEL_INSTANCES = 3 + 1 + 8 + 3 + 2 + 1
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -118,13 +123,13 @@ def kernel_name(mangled: str) -> str:
     flags = re.search(r"ILb(\d)ELb(\d)E", mangled)
     if flags:
         name += f"<raw={flags[1]},bswap={flags[2]}>"
-    targs = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    targs = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+))?E", mangled)
     hd = re.search(r"ILi(\d+)E", mangled)
     if name == "flash_tc_kernel":
         name += f"<bf16,hd={hd[1]}>"
     elif targs:
-        size = "kpt" if name == "wkv6_kernel" else "hd"
-        name += f"<{'f32' if targs[1] == 'f' else 'bf16'},{size}={targs[2]}>"
+        dtype = "f32" if targs[1] == "f" else "bf16"
+        name += f"<{dtype},hd={targs[2]}>" if targs[2] else f"<{dtype}>"
     return name
 
 
@@ -231,6 +236,24 @@ def cuda_ms(fn, reps=10, rounds=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=10):
+    """A launch's device time without the host's: ``reps`` calls captured
+    in a CUDA graph, the graph's replay timed by ``cuda_ms``, over
+    ``reps``."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=1) / reps
 
 
 def _flash_both(q, k, v, want, label, worst, **kw) -> None:
@@ -368,6 +391,98 @@ def flash_times(dev) -> dict:
             **_flash_timing(q, k, v, sdpa, S * (S + 1) // 2, causal=True)}
 
 
+def flash_core_f32_times(dev) -> dict:
+    """The CUDA-core flash kernel on its own path, float32, at qwen3-0.6b's
+    prefill shape and at pnpcoin-demo's (the chain trains it at seq_len
+    32): in turns with SDPA on the same float32 inputs (its memory-efficient
+    and its math backend, K and V repeated to H heads for both; products in
+    full float32, TF32 off), the plain version, and the bound at the
+    float32 rate (4 hd flops a causal (query, key) pair over 67e12; q, k,
+    v and out once over 3.35e12). At pnpcoin-demo's size a launch is host-
+    bound, so each is also timed replayed from a CUDA graph.
+    ``library_ms`` is the faster SDPA backend among those within the
+    float32 tolerance of the plain version."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda_core
+    settings = {
+        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    check(not settings["cuda.matmul.allow_tf32"]
+          and settings["float32_matmul_precision"] == "highest",
+          "float32 products in full float32 for the flash yardstick")
+    gen = torch.Generator(device=dev).manual_seed(20267)
+    tol = FLASH_TOL["float32"]
+    out = {"settings": settings}
+    for name, (B, S, H, Kv, hd) in {
+            "qwen3-0.6b": (SERVE_BATCH, SERVE_PROMPT, 16, 8, 128),
+            "pnpcoin-demo": (8, 32, 8, 4, 32)}.items():
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev)
+        k = torch.randn(B, S, Kv, hd, generator=gen, device=dev)
+        v = torch.randn(B, S, Kv, hd, generator=gen, device=dev)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        got = flash_attention_cuda_core(q, k, v, causal=True)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=tol, atol=tol)
+              and torch.equal(got, flash_attention_cuda_core(q, k, v,
+                                                             causal=True)),
+              f"CUDA-core flash float32 at {name} vs plain ({err}), "
+              "equal from run to run")
+        fns = {"cuda_core": lambda: flash_attention_cuda_core(
+            q, k, v, causal=True)}
+        sdpa_err = {}
+        for backend in ("efficient", "math"):
+            kernel = {"efficient": SDPBackend.EFFICIENT_ATTENTION,
+                      "math": SDPBackend.MATH}[backend]
+
+            def call(kernel=kernel):
+                with sdpa_kernel(kernel):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True)
+            sdpa_err[backend] = float((call().transpose(1, 2) - want)
+                                      .abs().max())
+            fns[f"sdpa_{backend}"] = call
+        del got
+        ms = in_turns(fns)
+        # a small launch's events measure the host; its graph, the card
+        dev_ms = {key: graph_ms(fn) for key, fn in fns.items()} \
+            if S <= 64 else None
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True), reps=3, rounds=1)
+        pairs = S * (S + 1) // 2
+        flops = 4 * hd * pairs * B * H
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+        t_ops, t_bytes = flops / F32_FLOPS_S, nbytes / HBM_BYTES_S
+        bound = max(t_ops, t_bytes) * 1e3
+        within = [b for b, e in sdpa_err.items() if e <= tol]
+        check(bool(within), f"an SDPA backend within {tol} of the plain "
+                            f"version at {name} ({sdpa_err})")
+        library = min(within, key=lambda b: ms[f"sdpa_{b}"])
+        out[name] = {
+            "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} float32 causal",
+            "ms": ms["cuda_core"], "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": ms[f"sdpa_{library}"],
+            "library": f"scaled_dot_product_attention, {library} backend",
+            "sdpa_ms": {b: ms[f"sdpa_{b}"] for b in sdpa_err},
+            "device_ms_from_graph": dev_ms,
+            "max_abs_err": err, "sdpa_max_abs_err_vs_plain": sdpa_err,
+            "bound_arithmetic": f"max({flops:.4g} flops / 67e12, "
+                                f"{nbytes:.4g} B / 3.35e12) = "
+                                f"max({t_ops * 1e3:.4g}, "
+                                f"{t_bytes * 1e3:.4g}) ms",
+            "share_of_bound": {key: bound / t for key, t in ms.items()}}
+        del q, k, v, qt, kt, vt, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def flash_window_vs_plain(dev) -> dict:
     """Both flash kernels' local window at recurrentgemma's head shape (hd
     256, ten query heads over one KV head): window 0, 64 and 2048, ragged
@@ -459,15 +574,20 @@ def _wkv_inputs(shape, dtype, gen, dev):
 
 def wkv_vs_plain(dev) -> dict:
     """The WKV-6 kernel against its plain version: tests/test_kernels.py's
-    TestWkv6 shapes and the serve head (B 8, H 64, K = V = 64) at S 64,
-    float32 and bfloat16 r, k, v, with and without s0; S = 1 launches in a
-    row equal one launch over S."""
+    TestWkv6 shapes, the serve head (B 8, H 64, K = V = 64) at S 64, head
+    sizes that cut through the kernel's 16 x 4 register tiles (K != V, not
+    multiples of 4 or 8: rows staged with plain loads), S at the edges of
+    its 16-step chunks and a single head (B H = 1); float32 and bfloat16
+    r, k, v, with and without s0; S = 1 launches in a row equal one launch
+    over S."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.wkv6 import wkv6_cuda
     gen = torch.Generator(device=dev).manual_seed(20265)
     shapes = [(1, 5, 1, 4, 4), (2, 19, 3, 8, 8), (1, 33, 2, 16, 16),
-              (8, 64, 64, 64, 64)]
+              (8, 64, 64, 64, 64), (1, 17, 2, 5, 7), (2, 33, 3, 33, 17),
+              (1, 40, 2, 63, 64), (1, 40, 2, 64, 1), (1, 15, 2, 64, 64),
+              (1, 16, 2, 64, 64), (1, 17, 2, 64, 64), (1, 50, 1, 64, 64)]
     worst, n = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
         for shape in shapes:
@@ -545,15 +665,20 @@ def recurrent_times(dev) -> dict:
     # read and s_final written. flops the function needs, per step: per
     # (k, v) k v, the FMA w S + k v and the FMA r S (5); per k u k and the
     # FMA of r . (u k) (3); per v the FMA that adds (r . (u k)) v (2). The
-    # kernel as written does 7 per (k, v) (u k v folded into each state
-    # value) and 3 per v (the adds of its four partial sums).
+    # kernel as written does the same 5 per (k, v) and 3 per k (a_t); per
+    # v the 3 adds that join its four partial sums and the FMA of a_t v
+    # (5); per step the 8 adds of a_t's four-lane shuffle sum.
     nbytes = 2 * (r.numel() + k.numel() + v.numel()) + 4 * w.numel() \
         + 4 * B * S * H * V + 4 * (u.numel() + 2 * s0.numel())
     flops = B * H * S * (5 * K * V + 3 * K + 2 * V)
-    flops_as_written = B * H * S * (7 * K * V + 3 * V)
+    flops_as_written = B * H * S * (5 * K * V + 3 * K + 5 * V + 8)
     t_b, t_o = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
     dec_r, dec_k, dec_v, dec_w = (x[:, :1].contiguous() for x in (r, k, v, w))
-    decode_ms = cuda_ms(lambda: wkv6_cuda(dec_r, dec_k, dec_v, dec_w, u, s0))
+
+    def decode_step():
+        return wkv6_cuda(dec_r, dec_k, dec_v, dec_w, u, s0)
+    decode_ms = cuda_ms(decode_step)
+    decode_device_ms = graph_ms(decode_step)
     out["wkv6"] = {
         "shape": f"B={B} S={S} H={H} K=V={K}, r/k/v bf16, w float32, s0",
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_b, t_o) * 1e3,
@@ -564,7 +689,8 @@ def recurrent_times(dev) -> dict:
                             f"{t_o * 1e3:.4g}) ms",
         "tflops_per_s": flops / (ms * 1e-3) / 1e12,
         "kernel_flops_as_written": flops_as_written,
-        "decode_step_ms": decode_ms}
+        "decode_step_ms": decode_ms,
+        "decode_step_device_ms_from_graph": decode_device_ms}
     del r, k, v, w, u, s0
 
     # flash: recurrentgemma's prefill, window 2048, MQA, hd 256, bf16
@@ -979,11 +1105,13 @@ def main() -> int:
                    "bound_by": m_by, "nodes_per_s": parents / (m_ms * 1e-3)}
     flash_time = flash_times(dev)
     emit({"phase": "flash_times", "gpu": smi, **flash_time})
+    core_f32 = flash_core_f32_times(dev)
+    emit({"phase": "flash_cuda_core_float32_times", "gpu": smi, **core_f32})
     rec_times = recurrent_times(dev)
     emit({"phase": "recurrent_times", "gpu": smi, **rec_times})
     emit({"phase": "kernel_times", "gpu": smi, "sha256": sha_times,
           "merkle": merkle_time, "flash_attention": flash_time,
-          **rec_times})
+          "flash_cuda_core_float32": core_f32, **rec_times})
     del digests, rows, top, forest_rows, mrows
     torch.cuda.empty_cache()
 
@@ -1128,19 +1256,13 @@ def main() -> int:
           "each flash kernel launched on its serving path")
     flash_rg = rec_times["flash_attention_rg"]
 
-    def flash_row(name, source, kernel, launches, **extra):
+    def at(times, kernel):
+        """One flash kernel's readings in a bf16 timing of both."""
         ms_key = "ms" if kernel == "tensor_core" else "cuda_core_ms"
-        err = "flash_attention_tc" if kernel == "tensor_core" else \
-            "flash_attention"
-
-        def at(times):
-            return {"shape": times["shape"], "ms": times[ms_key],
-                    **{k: times[k] for k in ("plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")},
-                    "tflops_per_s": times["tflops_per_s"][kernel]}
-        return row(name, err, source, "flash_attention.py:28", launches,
-                   at(flash_time), recurrentgemma_shape=at(flash_rg),
-                   **extra)
+        return {"shape": times["shape"], "ms": times[ms_key],
+                **{k: times[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+                "tflops_per_s": times["tflops_per_s"][kernel]}
 
     def row(name, err, source, replaces, launches, times, **extra):
         return {"name": name, "route": "cuda",
@@ -1156,20 +1278,26 @@ def main() -> int:
         row("merkle_level", "merkle", "merkle.cu", "merkle.py:132",
             counts["merkle"], {**merkle_time, "library_ms": None},
             path="mining"),
-        flash_row("flash_attention_tc", "flash_attention_tc.cu",
-                  "tensor_core",
-                  qwen["flash_attention_tc"] + rg["flash_attention_tc"],
-                  path="serving qwen3-0.6b (28) and recurrentgemma-2b (8), "
-                       "bf16",
-                  launches_by_path={
-                      "qwen3-0.6b": qwen["flash_attention_tc"],
-                      "recurrentgemma-2b": rg["flash_attention_tc"]}),
-        flash_row("flash_attention_fwd", "flash_attention.cu", "cuda_core",
-                  sum(small_flash.values()),
-                  path="serving the reduced float32 qwen3-0.6b (2) and "
-                       "recurrentgemma-2b (1), hd 32; times on the bf16 "
-                       "inputs of the tensor-core row",
-                  launches_by_path=small_flash),
+        row("flash_attention_tc", "flash_attention_tc",
+            "flash_attention_tc.cu", "flash_attention.py:28",
+            qwen["flash_attention_tc"] + rg["flash_attention_tc"],
+            at(flash_time, "tensor_core"),
+            recurrentgemma_shape=at(flash_rg, "tensor_core"),
+            path="serving qwen3-0.6b (28) and recurrentgemma-2b (8), bf16",
+            launches_by_path={
+                "qwen3-0.6b": qwen["flash_attention_tc"],
+                "recurrentgemma-2b": rg["flash_attention_tc"]}),
+        row("flash_attention_fwd", "flash_attention", "flash_attention.cu",
+            "flash_attention.py:28", sum(small_flash.values()),
+            core_f32["qwen3-0.6b"],
+            pnpcoin_demo_shape=core_f32["pnpcoin-demo"],
+            bf16_inputs_not_on_path={
+                "qwen3-0.6b": at(flash_time, "cuda_core"),
+                "recurrentgemma-2b": at(flash_rg, "cuda_core")},
+            path="float32 (and hd 32): the reduced float32 qwen3-0.6b (2) "
+                 "and recurrentgemma-2b (1) served, pnpcoin-demo; times in "
+                 "float32 against SDPA in float32",
+            launches_by_path=small_flash),
         row("decay_scan", "decay_scan", "decay_scan.cu", "decay_scan.py:21",
             rg["decay_scan"], rec_times["decay_scan"],
             path="serving recurrentgemma-2b"),

@@ -155,6 +155,6 @@ def test_port_imports_neither_jax_nor_the_reference():
                    timeout=120)
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     files = list((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "chip_probes.py"]
     for path in files:
         assert not pattern.search(path.read_text()), path

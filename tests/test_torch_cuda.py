@@ -263,21 +263,40 @@ def test_decay_scan_chunked_equals_whole(card):
 
 WKV_TOL = dict(rtol=1e-4, atol=1e-4)
 # test_kernels.py::TestWkv6's shapes, the hand check's, the reduced
-# model's and the serve head at a short sequence: (B, S, H, K, V)
+# model's and the serve head at a short sequence; then head sizes that cut
+# through the kernel's 16 x 4 register tiles (K != V, sizes that are not
+# multiples of 4 or 8, whose rows are staged with plain loads), S at the
+# edges of its 16-step chunks, and a single head (B H = 1, fewer blocks
+# than SMs): (B, S, H, K, V)
 WKV_SHAPES = [(1, 5, 1, 4, 4), (2, 19, 3, 8, 8), (1, 33, 2, 16, 16),
-              (1, 1, 1, 3, 2), (2, 40, 8, 32, 32), (8, 64, 64, 64, 64)]
+              (1, 1, 1, 3, 2), (2, 40, 8, 32, 32), (8, 64, 64, 64, 64),
+              (1, 17, 2, 5, 7), (2, 33, 3, 33, 17), (1, 40, 2, 63, 64),
+              (1, 40, 2, 64, 1), (1, 15, 2, 64, 64), (1, 16, 2, 64, 64),
+              (1, 17, 2, 64, 64), (1, 50, 1, 64, 64)]
 
 
-def _wkv_inputs(shape, dtype, card, seed):
+def _wkv_inputs(shape, dtype, card, seed, w_min=0.5):
     B, S, H, K, V = shape
     gen = torch.Generator(device=card).manual_seed(seed)
 
     def randn(*s):
         return torch.randn(s, generator=gen, device=card)
     r, k, v = randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, V)
-    w = torch.sigmoid(randn(B, S, H, K)) * 0.5 + 0.5
+    w = torch.sigmoid(randn(B, S, H, K)) * (1 - w_min) + w_min
     return (r.to(dtype), k.to(dtype), v.to(dtype), w, randn(H, K),
             randn(B, H, K, V))
+
+
+def _wkv6_float64(r, k, v, w, u, s0):
+    """The recurrence of ``ref.wkv6_ref`` in float64."""
+    r, k, v, w, u, s = (x.double() for x in (r, k, v, w, u, s0))
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                 s + u[None, :, :, None] * kv))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(outs, dim=1), s
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -296,6 +315,30 @@ def test_wkv6_kernel_matches_plain_version(card, dtype, shape, with_s0):
     torch.testing.assert_close(out, want_o, **WKV_TOL)
     torch.testing.assert_close(s_final, want_s, **WKV_TOL)
     assert torch.equal(ops.wkv6(r, k, v, w, u, s0)[0], out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wkv6_long_state_matches_float64(card, dtype):
+    """2048 steps of one head from a state with w in [0.99, 1): the state
+    remembers ~100 steps and outputs reach hundreds, so two float32 orders
+    of the sums (the kernel's and the plain version's) can differ by more
+    than 1e-4 absolute where an output is near 0. The kernel is held to
+    the float64 recurrence within 1e-4 relative plus 1e-5 of the RMS
+    absolute, and to no more than twice the float32 plain version's
+    distance from it."""
+    args = _wkv_inputs((1, 2048, 1, 64, 64), dtype, card, 11, w_min=0.99)
+    out, s_final = ops.wkv6(*args)
+    assert torch.equal(ops.wkv6(*args)[0], out)
+    want_o, want_s = _wkv6_float64(*args)
+    plain_o, plain_s = ref.wkv6_ref(*args)
+    for got, plain, want in ((out, plain_o, want_o),
+                             (s_final, plain_s, want_s)):
+        rms = float(want.square().mean().sqrt())
+        torch.testing.assert_close(got.double(), want, rtol=1e-4,
+                                   atol=1e-5 * rms)
+        err = float((got.double() - want).abs().max())
+        assert err <= 2 * float((plain.double() - want).abs().max()) + 1e-6
 
 
 def test_wkv6_steps_and_chunks_equal_one_call(card):

@@ -107,8 +107,11 @@ def _wkv_inputs(shape):
 
 
 # tests/test_kernels.py::TestWkv6's shapes, and the reduced model's head
-@pytest.mark.parametrize("shape", [(1, 5, 1, 4, 4), (2, 19, 3, 8, 8),
-                                   (1, 33, 2, 16, 16), (2, 12, 8, 32, 32)])
+WKV_SHAPES = [(1, 5, 1, 4, 4), (2, 19, 3, 8, 8), (1, 33, 2, 16, 16),
+              (2, 12, 8, 32, 32)]
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES)
 def test_wkv6_matches_pallas_and_ref(shape):
     args = _wkv_inputs(shape)
     got_o, got_s = ops.wkv6(*map(_t, args))
@@ -125,6 +128,31 @@ def test_wkv6_matches_pallas_and_ref(shape):
     _close(part_s, got_s, WKV_TOL)
     zero_o, _ = ops.wkv6(*map(_t, args[:5]))
     _close(zero_o, jref.wkv6_ref(*jargs[:5])[0], WKV_TOL)
+
+
+def _wkv6_bonus_apart(r, k, v, w, u, s0):
+    """The order of sums the CUDA kernel uses, in plain PyTorch: the bonus
+    is one scalar a step, o_t = r_t^T S + a_t v_t with a_t = sum_k r_tk u_k
+    k_tk, then S <- diag(w_t) S + k_t v_t^T."""
+    a = (r * u * k).sum(-1)                                  # (B, S, H)
+    s, outs = s0.clone(), []
+    for t in range(r.shape[1]):
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s)
+                    + a[:, t, :, None] * v[:, t])
+        s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
+    return torch.stack(outs, dim=1), s
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+def test_wkv6_bonus_as_one_scalar_a_step(shape):
+    """The kernel's rearranged arithmetic computes the same function as the
+    port's plain version and the reference's."""
+    args = _wkv_inputs(shape)
+    got_o, got_s = _wkv6_bonus_apart(*map(_t, args))
+    for want_o, want_s in (ref.wkv6_ref(*map(_t, args)),
+                           jref.wkv6_ref(*map(jnp.asarray, args))):
+        _close(got_o, want_o, WKV_TOL)
+        _close(got_s, want_s, WKV_TOL)
 
 
 def test_wkv6_one_step_by_hand():
