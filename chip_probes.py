@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Microbenchmarks behind the WKV-6 kernel's design, on one CUDA card.
+"""Microbenchmarks behind the WKV-6, decay-scan and SHA-256 kernels'
+designs, on one CUDA card.
 
-    python3 chip_probes.py
+    python3 chip_probes.py [probe ...]
 
-Prints one JSON line per probe, each with the card's name and power limit:
+Prints one JSON line per probe, each with the card's name and power limit
+(all of them, or only those named):
   1. shared_loads: the shared-memory pipe's cycles per warp-wide load, for
      a 16-byte load whose lanes read 1, 4 (lane % 4), 4 in runs of 8
      neighbouring lanes (lane / 8 % 4), or 32 addresses, an 8-byte and a
@@ -14,7 +16,25 @@ Prints one JSON line per probe, each with the card's name and power limit:
      (one step of a warp), by opcode, read from the built library's SASS;
   4. wkv6_per_step: the WKV-6 kernel of ``src/repro_torch/kernels/csrc``
      (bf16 r, k, v, K = V = 64, S 2048, from a state) in cycles per step,
-     at 1, 2, 3 and 4 heads per SM and at rwkv6-7b's grid (B 8, H 64).
+     at 1, 2, 3 and 4 heads per SM and at rwkv6-7b's grid (B 8, H 64);
+  5. int_issue: LOP3, SHF, IADD3 and IMAD warp instructions a scheduler
+     issues per cycle (8 independent chains a thread), alone and in pairs,
+     at 1, 2 and 4 warps a scheduler, with each probe loop's SASS opcodes:
+     the integer pipe's rate behind the SHA-256 and Merkle bounds;
+  6. memory_in_flight: read + write bandwidth of a streaming kernel shaped
+     like the decay scan (a and b read, h written, float32) against the
+     bytes of loads each SM keeps in flight; and the blocks each SM gets
+     from the one-thread-a-chain decay-scan grid at recurrentgemma-2b's
+     prefill (320 blocks of 64 threads);
+  7. decay_scan_tiles: the tiled decay-scan kernel at (8, 4096, 2560) from
+     h0 over tile shapes (steps x channels), and the one-thread-a-chain
+     kernel, in turns;
+  8. sha256_blocks: the SHA-256 kernel at the mining path's three shapes
+     over threads a block, with and without W fixed at compile time,
+     replayed from a CUDA graph.
+The tile and block sweeps build their variants of the port's sources with
+-D flags into their own libraries; the port's library keeps its one tile
+and block.
 Cycles are elapsed time at the card's maximum SM clock (read from
 nvidia-smi). The probes' kernels are built with nvcc into
 ``build/repro_torch_probes/``; the WKV-6 library is built as the port builds
@@ -92,6 +112,117 @@ __global__ void fp32(float* out, int iters, float a, float b) {
     for (int c = 0; c < CH; ++c) s += x[c] + y[c];
     if (s == 1234.5f) out[threadIdx.x] = s;
 }
+// integer issue: CH chains a thread; OP 0 LOP3, 1 SHF, 2 IADD3, 3 IMAD,
+// 4 LOP3 and IMAD on alternate chains, 5 LOP3 and IADD3, 6 SHF and IADD3.
+// Each op reads its chain and two others from the iteration before, so no
+// two iterations fold together.
+template <int OP>
+__device__ __forceinline__ unsigned iop(unsigned x, unsigned y, unsigned z,
+                                        int c) {
+    unsigned d;
+    const int kind = OP < 4 ? OP : OP == 4 ? (c & 1 ? 3 : 0)
+                   : OP == 5 ? (c & 1 ? 2 : 0) : (c & 1 ? 2 : 1);
+    if (kind == 0)
+        asm volatile("lop3.b32 %0, %1, %2, %3, 0x96;" : "=r"(d)
+                     : "r"(x), "r"(y), "r"(z));
+    else if (kind == 1)
+        asm volatile("shf.r.wrap.b32 %0, %1, %2, %3;" : "=r"(d)
+                     : "r"(x), "r"(y), "r"(z));
+    else if (kind == 2)
+        d = x + y + z;
+    else
+        asm volatile("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d)
+                     : "r"(x), "r"(y), "r"(z));
+    return d;
+}
+template <int OP, int CH>
+__global__ void intops(unsigned* out, int iters, unsigned seed) {
+    unsigned x[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) x[c] = seed * (threadIdx.x + c + 1);
+    for (int i = 0; i < iters; ++i) {
+        unsigned y[CH];
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+            y[c] = iop<OP>(x[c], x[(c + 1) % CH], x[(c + 3) % CH], c);
+#pragma unroll
+        for (int c = 0; c < CH; ++c) x[c] = y[c];
+    }
+    unsigned s = 0;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) s ^= x[c];
+    if (s == 0x12345u) out[threadIdx.x] = s;
+}
+extern "C" int probe_int(int op, unsigned* out, int blocks, int threads,
+                         int iters) {
+    switch (op) {
+    case 0: intops<0, 8><<<blocks, threads>>>(out, iters, 7u); break;
+    case 1: intops<1, 8><<<blocks, threads>>>(out, iters, 7u); break;
+    case 2: intops<2, 8><<<blocks, threads>>>(out, iters, 7u); break;
+    case 3: intops<3, 8><<<blocks, threads>>>(out, iters, 7u); break;
+    case 4: intops<4, 8><<<blocks, threads>>>(out, iters, 7u); break;
+    case 5: intops<5, 8><<<blocks, threads>>>(out, iters, 7u); break;
+    case 6: intops<6, 8><<<blocks, threads>>>(out, iters, 7u); break;
+    default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+// decay-scan-shaped streaming: K float4 of a and of b a thread in flight,
+// then K float4 of a * b + b written; grid-stride over n float4
+template <int K>
+__global__ void stream_rw(const float4* __restrict__ a,
+                          const float4* __restrict__ b, float4* __restrict__ o,
+                          long long n) {
+    const long long stride = (long long)gridDim.x * blockDim.x * K;
+    for (long long i = (long long)blockIdx.x * blockDim.x * K + threadIdx.x;
+         i < n; i += stride) {
+        float4 x[K], y[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const long long j = i + (long long)k * blockDim.x;
+            if (j < n) { x[k] = __ldcs(a + j); y[k] = __ldcs(b + j); }
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const long long j = i + (long long)k * blockDim.x;
+            if (j < n)
+                __stcs(o + j, make_float4(fmaf(x[k].x, y[k].x, y[k].x),
+                                          fmaf(x[k].y, y[k].y, y[k].y),
+                                          fmaf(x[k].z, y[k].z, y[k].z),
+                                          fmaf(x[k].w, y[k].w, y[k].w)));
+        }
+    }
+}
+extern "C" int probe_stream(int k, const void* a, const void* b, void* o,
+                            long long n, int blocks, int threads) {
+    const float4* x = (const float4*)a;
+    const float4* y = (const float4*)b;
+    float4* z = (float4*)o;
+    switch (k) {
+    case 1: stream_rw<1><<<blocks, threads>>>(x, y, z, n); break;
+    case 2: stream_rw<2><<<blocks, threads>>>(x, y, z, n); break;
+    case 4: stream_rw<4><<<blocks, threads>>>(x, y, z, n); break;
+    case 8: stream_rw<8><<<blocks, threads>>>(x, y, z, n); break;
+    default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+// the SM each block of a grid runs on; blocks wait ~20 us so all that can
+// be resident at once are
+__global__ void smid_of_block(int* out) {
+    if (threadIdx.x == 0) {
+        unsigned id;
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+        out[blockIdx.x] = (int)id;
+        const long long t0 = clock64();
+        while (clock64() - t0 < 40000) {
+        }
+    }
+}
+extern "C" int probe_smid(int* out, int blocks, int threads) {
+    smid_of_block<<<blocks, threads>>>(out);
+    return (int)cudaGetLastError();
+}
 extern "C" int probe_lds(int mode, float* out, int blocks, int threads,
                          int iters) {
     switch (mode) {
@@ -153,22 +284,50 @@ def build_probes() -> ctypes.CDLL:
                     str(lib), str(src)], check=True, capture_output=True,
                    timeout=600)
     probes = ctypes.CDLL(str(lib))
-    for fn in (probes.probe_lds, probes.probe_fp32):
+    for fn in (probes.probe_lds, probes.probe_fp32, probes.probe_int):
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_int
+    vp = ctypes.c_void_p
+    probes.probe_stream.argtypes = [ctypes.c_int, vp, vp, vp,
+                                    ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int]
+    probes.probe_smid.argtypes = [vp, ctypes.c_int, ctypes.c_int]
+    for fn in (probes.probe_stream, probes.probe_smid):
+        fn.restype = ctypes.c_int
     return probes
+
+
+def sass_of(lib: Path) -> str:
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") \
+        / "bin" / "cuobjdump"
+    exe = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    return subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def opcodes(text: str, name: str) -> dict:
+    """Opcode counts (with their modifiers' first word) of each function
+    whose mangled name holds ``name``, in SASS text."""
+    out = {}
+    for func in text.split("Function : ")[1:]:
+        head = func.split("\n", 1)[0].strip()
+        if name not in head:
+            continue
+        ops = collections.Counter(
+            m[1] for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*"
+                r"(?:\.[A-Z0-9_]+)?)", func))
+        ops.pop("NOP", None)
+        out[head] = dict(ops.most_common())
+    return out
 
 
 def step_loop_counts(lib: Path) -> dict:
     """Opcodes of each WKV-6 kernel's step loop: the shortest loop (a
     backward branch and the code it jumps over) that holds 128 FFMA or
     more and 3 shuffles, in the library's SASS (cuobjdump)."""
-    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") \
-        / "bin" / "cuobjdump"
-    exe = str(tool) if tool.exists() else shutil.which("cuobjdump")
-    text = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+    text = sass_of(lib)
     out = {}
     for func in text.split("Function : ")[1:]:
         head = func.split("\n", 1)[0]
@@ -205,6 +364,16 @@ def main() -> int:
     from repro_torch.kernels import native
     from repro_torch.kernels.wkv6 import wkv6_cuda
 
+    names = set(sys.argv[1:])
+    unknown = names - set(PROBES)
+    if unknown:
+        print(f"chip_probes: no probe {sorted(unknown)}; one of {PROBES}",
+              file=sys.stderr)
+        return 2
+
+    def want(probe: str) -> bool:
+        return not names or probe in names
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -215,44 +384,42 @@ def main() -> int:
     probes = build_probes()
     out = torch.zeros(1024, device="cuda")
 
-    def run(fn, *args):
-        rc = fn(*args)
-        if rc:
-            raise RuntimeError(f"probe launch failed ({rc})")
-
     # 1. shared loads: 64 warps an SM, 16 loads an iteration
     iters, threads = 4096, 256
     blocks = sms * 2048 // threads
     per_sm = blocks * threads // 32 * iters * 16 / sms
-    emit({"probe": "shared_loads", "gpu": gpu,
-          "cycles_per_warp_instruction_per_sm": {
-              LDS_MODES[mode]: elapsed_ms(lambda: run(
-                  probes.probe_lds, mode, out.data_ptr(), blocks, threads,
-                  iters)) * 1e-3 * hz / per_sm
-              for mode in LDS_MODES}})
+    if want("shared_loads"):
+        emit({"probe": "shared_loads", "gpu": gpu,
+              "cycles_per_warp_instruction_per_sm": {
+                  LDS_MODES[mode]: elapsed_ms(lambda: _ok(probes.probe_lds(
+                      mode, out.data_ptr(), blocks, threads, iters)))
+                  * 1e-3 * hz / per_sm
+                  for mode in LDS_MODES}})
 
     # 2. FP32 issue: 3 instructions a chain and iteration
     iters, res = 20000, {}
-    for chains in (4, 16):
+    for chains in (4, 16) if want("fp32_issue") else ():
         for warps in (1, 2):
-            ms = elapsed_ms(lambda: run(probes.probe_fp32, chains,
-                                        out.data_ptr(), sms, 128 * warps,
-                                        iters))
+            ms = elapsed_ms(lambda: _ok(probes.probe_fp32(
+                chains, out.data_ptr(), sms, 128 * warps, iters)))
             res[f"{chains} chains, {warps} warp(s) a scheduler"] = \
                 3 * chains * iters * warps / (ms * 1e-3 * hz)
-    emit({"probe": "fp32_issue", "gpu": gpu,
-          "instructions_per_cycle_per_scheduler": res})
+    if res:
+        emit({"probe": "fp32_issue", "gpu": gpu,
+              "instructions_per_cycle_per_scheduler": res})
 
     # 3. the WKV-6 step loop's instructions
     lib, _ = native.build()
-    emit({"probe": "wkv6_step_loop", "gpu": gpu,
-          "per_warp_and_step": step_loop_counts(lib)})
+    if want("wkv6_step_loop"):
+        emit({"probe": "wkv6_step_loop", "gpu": gpu,
+              "per_warp_and_step": step_loop_counts(lib)})
 
     # 4. WKV-6 per step against heads per SM
     native.library()
     steps, res = 2048, {}
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for B, H in ((1, sms), (2, sms), (3, sms), (4, sms), (8, 64)):
+    for B, H in ((1, sms), (2, sms), (3, sms), (4, sms), (8, 64)) \
+            if want("wkv6_per_step") else ():
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
         r, k, v = (randn(B, steps, H, 64).bfloat16() for _ in range(3))
@@ -267,9 +434,242 @@ def main() -> int:
         res[f"B={B} H={H} ({B * H / sms:.2f} heads an SM)"] = {
             "ms": ms, "cycles_per_step": ms * 1e-3 * hz / steps}
         del r, k, v, w, u, s0
-    emit({"probe": "wkv6_per_step", "gpu": gpu, "clock_hz": hz,
-          "shape": "S=2048 K=V=64, r/k/v bf16, from a state", **res})
+    if res:
+        emit({"probe": "wkv6_per_step", "gpu": gpu, "clock_hz": hz,
+              "shape": "S=2048 K=V=64, r/k/v bf16, from a state", **res})
+    del gen
+    torch.cuda.empty_cache()
+    if want("int_issue"):
+        probe_int_issue(probes, out, gpu, hz, sms)
+    if want("memory_in_flight"):
+        probe_memory(probes, gpu, sms)
+    if want("decay_scan_tiles"):
+        probe_decay_tiles(gpu)
+    if want("sha256_blocks"):
+        probe_sha_blocks(gpu)
     return 0
+
+
+PROBES = ("shared_loads", "fp32_issue", "wkv6_step_loop", "wkv6_per_step",
+          "int_issue", "memory_in_flight", "decay_scan_tiles",
+          "sha256_blocks")
+
+
+INT_OPS = {0: "LOP3", 1: "SHF", 2: "IADD3", 3: "IMAD", 4: "LOP3 + IMAD",
+           5: "LOP3 + IADD3", 6: "SHF + IADD3"}
+
+
+def probe_int_issue(probes, out, gpu: str, hz: float, sms: int) -> None:
+    """Integer warp instructions a scheduler issues per cycle: 8 chains a
+    thread, one block of 128 x warps threads an SM (warps a scheduler)."""
+    iters, res = 20000, {}
+    for op, label in INT_OPS.items():
+        res[label] = {}
+        for warps in (1, 2, 4):
+            ms = elapsed_ms(lambda: _ok(probes.probe_int(
+                op, out.data_ptr(), sms, 128 * warps, iters)))
+            res[label][f"{warps} warp(s) a scheduler"] = \
+                8 * iters * warps / (ms * 1e-3 * hz)
+    text = sass_of(ROOT / "build" / "repro_torch_probes" / "libprobes.so")
+    emit({"probe": "int_issue", "gpu": gpu, "clock_hz": hz,
+          "warp_instructions_per_cycle_per_scheduler": res,
+          "sass_opcodes": {INT_OPS[int(re.search(r"ILi(\d)E", k)[1])]: v
+                           for k, v in opcodes(text, "intops").items()}})
+
+
+def _ok(rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"probe launch failed ({rc})")
+
+
+def probe_memory(probes, gpu: str, sms: int) -> None:
+    """Bandwidth (a and b read, h written) against the bytes of loads an SM
+    keeps in flight, at the decay scan's size; and the blocks an SM gets
+    from the one-thread-a-chain grid at recurrentgemma-2b's prefill."""
+    import torch
+    n4 = 8 * 4096 * 2560 // 4
+    a, b, o = (torch.rand(n4 * 4, device="cuda") for _ in range(3))
+    res = {}
+    for k in (1, 2, 4, 8):
+        for blocks_per_sm in (1, 2, 4, 8, 16):
+            threads = 128
+            ms = elapsed_ms(lambda: _ok(probes.probe_stream(
+                k, a.data_ptr(), b.data_ptr(), o.data_ptr(), n4,
+                sms * blocks_per_sm, threads)))
+            in_flight = blocks_per_sm * threads * k * 32
+            res[f"K={k} blocks/SM={blocks_per_sm}"] = {
+                "load_bytes_in_flight_per_sm": in_flight,
+                "gb_per_s": 3 * n4 * 16 / (ms * 1e-3) / 1e9}
+    del a, b, o
+    # the one-thread-a-chain decay-scan grid: B C / 64 blocks of 64
+    blocks = 8 * 2560 // 64
+    ids = torch.zeros(blocks, dtype=torch.int32, device="cuda")
+    _ok(probes.probe_smid(ids.data_ptr(), blocks, 64))
+    per_sm = collections.Counter(ids.tolist())
+    hist = collections.Counter(per_sm.values())
+    hist[0] = sms - len(per_sm)
+    emit({"probe": "memory_in_flight", "gpu": gpu,
+          "stream": "a, b float32 read and h written once, 3 x 335.5 MB",
+          "bandwidth_by_loads_in_flight": res,
+          "per_chain_grid": {
+              "blocks": blocks, "threads": 64,
+              "sms_by_blocks_on_them": {str(k): v for k, v in
+                                        sorted(hist.items())},
+              "busiest_sm_over_mean": max(per_sm.values())
+              / (blocks / sms)}})
+
+
+def build_variants(source: str, variants: dict) -> dict:
+    """``csrc/<source>`` built once a variant with the variant's -D flags
+    (all nvcc processes started together) into its own library under
+    ``build/repro_torch_probes/``, loaded; the port's library is not
+    touched."""
+    from repro_torch.kernels import native
+    out = ROOT / "build" / "repro_torch_probes"
+    out.mkdir(parents=True, exist_ok=True)
+    src = native.CSRC / source
+    libs = {label: out / f"{src.stem}_{i}.so"
+            for i, label in enumerate(variants)}
+    procs = {label: subprocess.Popen(
+        [native._nvcc(), *native.NVCC_FLAGS, *flags, "-shared", "-o",
+         str(libs[label]), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for label, flags in variants.items()}
+    try:
+        for label, proc in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {source} {label}:\n"
+                                   f"{text}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {label: ctypes.CDLL(str(lib)) for label, lib in libs.items()}
+
+
+def probe_decay_tiles(gpu: str) -> None:
+    """The tiled decay-scan kernel over tile shapes (steps x channels, each
+    built from decay_scan.cu at -D DECAY_STEPS and DECAY_WARPS) and the
+    port's one-thread-a-chain kernel at recurrentgemma-2b's prefill, (8,
+    4096, 2560) from h0, in turns (events around 5 launches, median of
+    3)."""
+    import torch
+    from repro_torch.kernels import decay_scan
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    tiles = [(steps, warps) for steps in (32, 64, 128, 256)
+             for warps in (1, 2, 4) if 2 * steps * 32 * warps * 4
+             <= 200 * 1024]
+    libs = build_variants("decay_scan.cu", {
+        f"{steps} steps x {32 * warps} channels":
+            [f"-DDECAY_STEPS={steps}", f"-DDECAY_WARPS={warps}"]
+        for steps, warps in tiles})
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    B, S, C = 8, 4096, 2560
+    a = torch.rand((B, S, C), generator=gen, device="cuda") * 0.7 + 0.3
+    b = torch.randn((B, S, C), generator=gen, device="cuda")
+    h0 = torch.randn((B, C), generator=gen, device="cuda")
+    want = decay_scan.decay_scan_cuda_per_chain(a, b, h0)
+    got = (torch.empty_like(a), torch.empty_like(h0))
+    fns = {"per_chain": lambda: decay_scan.decay_scan_cuda_per_chain(
+        a, b, h0)}
+    for label, lib in libs.items():
+        lib.pnp_decay_scan.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, vp,
+                                       vp]
+        lib.pnp_decay_scan.restype = ctypes.c_int
+        lib.pnp_decay_scan_workspace_words.argtypes = [i64, i64]
+        lib.pnp_decay_scan_workspace_words.restype = i64
+        ws = torch.zeros(lib.pnp_decay_scan_workspace_words(B, C),
+                         dtype=torch.int64, device="cuda")
+
+        def call(lib=lib, ws=ws):
+            _ok(lib.pnp_decay_scan(
+                a.data_ptr(), b.data_ptr(), h0.data_ptr(), got[0].data_ptr(),
+                got[1].data_ptr(), B, S, C, ws.data_ptr(),
+                torch.cuda.current_stream().cuda_stream))
+        call()
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"tiled decay scan {label} differs from the "
+                               "per-chain kernel")
+        fns[label] = call
+    del want
+    times = {k: [] for k in fns}
+    for r in range(2):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[k].append(elapsed_ms(lambda: [fns[k]() for _ in range(5)])
+                            / 5)
+    nbytes = 4 * (3 * a.numel() + 2 * h0.numel())
+    emit({"probe": "decay_scan_tiles", "gpu": gpu,
+          "shape": f"B={B} S={S} C={C} float32, h0", "bytes": nbytes,
+          "equal_bits_to_per_chain": True,
+          "ms": {k: statistics.median(v) for k, v in times.items()},
+          "gb_per_s": {k: nbytes / (statistics.median(v) * 1e-3) / 1e9
+                       for k, v in times.items()}})
+
+
+def probe_sha_blocks(gpu: str) -> None:
+    """The SHA-256 kernel at the mining path's shapes over threads a block,
+    with and without the instances that fix W = 2 and 8 (each built from
+    sha256.cu at -D SHA_THREADS and SHA_FIXED_W), each replayed from a CUDA
+    graph of 10 launches (the card's time), and the port's SHA-256
+    kernels' opcodes."""
+    import torch
+    from repro_torch.kernels import native, ref
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    blocks = [(threads, fixed) for threads in (64, 128, 256, 512)
+              for fixed in (1, 0)]
+    libs = build_variants("sha256.cu", {
+        f"{threads} threads" + (", W fixed" if fixed else ""):
+            [f"-DSHA_THREADS={threads}", f"-DSHA_FIXED_W={fixed}"]
+        for threads, fixed in blocks})
+    for lib in libs.values():
+        lib.pnp_sha256_rows.argtypes = [vp, i64, i32, vp, vp, i32, vp]
+        lib.pnp_sha256_rows.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shapes = {"full chunk 2^16 x 2, both": (1 << 16, 2, True, True),
+              "classic 2^20 x 2, raw": (1 << 20, 2, True, False),
+              "classic 2^20 x 8, raw": (1 << 20, 8, True, False)}
+    res = {}
+    for label, (n, w, raw, bswap) in shapes.items():
+        msg = torch.randint(0, 2**32, (n, w), generator=gen, device="cuda",
+                            dtype=torch.int64)
+        want = ref.sha256_words_ref(msg)
+        outs = torch.empty((2, n, 8), dtype=torch.int64, device="cuda")
+        res[label] = {}
+        for variant, lib in libs.items():
+            def call(lib=lib):
+                _ok(lib.pnp_sha256_rows(
+                    msg.data_ptr(), n, w, outs[0].data_ptr() if raw else None,
+                    outs[1].data_ptr() if bswap else None, 0,
+                    torch.cuda.current_stream().cuda_stream))
+            call()
+            if not torch.equal(outs[0], want):
+                raise RuntimeError(f"sha256 {label} {variant}")
+            res[label][variant] = graph_ms(call)
+        del msg, want, outs
+    lib, _ = native.build()
+    emit({"probe": "sha256_blocks", "gpu": gpu,
+          "device_ms_from_graph": res,
+          "sass_opcodes": opcodes(sass_of(lib), "sha256_rows_kernel")})
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """``reps`` calls captured in a CUDA graph; its replay's median time
+    (``elapsed_ms``) over ``reps``."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return elapsed_ms(graph.replay) / reps
 
 
 if __name__ == "__main__":

@@ -7,21 +7,27 @@ On one CUDA card it:
   1. reports the card, its power limit and the software, and builds the
      hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
   2. holds each kernel against its plain PyTorch version on the card: the
-     hash kernels exactly (integer work) and against hashlib, both flash
+     hash kernels exactly (integer work) and against hashlib (SHA-256 on
+     every row at W = 1..20, N off its block, raw, bswap and both, N = 0,
+     unaligned views), both flash
      attention kernels (the tensor-core one for bf16 at head dims 64-256,
      the CUDA-core one for the rest and, on the same bf16 inputs, for
      comparison) within 2e-4 (float32) and 2e-2 (bfloat16) over head dims
      32-256, GQA and MQA groups, causal or not, local windows and ragged
      lengths (and at recurrentgemma's served prefill shape), the decay
-     scan within 1e-5 and WKV-6 within 1e-4 (relative plus absolute, over
+     scan within 1e-5 (at its tiles' chunk and channel edges too) and bit
+     for bit to its one-thread-a-chain kernel and to a second launch, and
+     WKV-6 within 1e-4 (relative plus absolute, over
      head sizes that cut through its 16 x 4 register tiles and sequence
      lengths at the edges of its 16-step chunks);
      then times kernels, plain versions and, for attention, PyTorch's SDPA
      as a yardstick, at the main paths' shapes (the two flash kernels and
      SDPA in turns; the CUDA-core kernel also in float32, its own path, at
      qwen3-0.6b's prefill shape and at pnpcoin-demo's, in turns with SDPA
-     on the same float32 inputs; WKV-6 also at a decode step, with events
-     around 10 launches and replayed from a CUDA graph);
+     on the same float32 inputs; WKV-6 at a decode step and SHA-256 at the
+     mining path's three shapes, with events around 10 launches and
+     replayed from a CUDA graph; the decay scan's tiled and one-thread-a-
+     chain kernels in turns; Merkle in ms per level, its launch unit);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -37,8 +43,11 @@ On one CUDA card it:
      of each kernel must equal the plain version on the same inputs, and a
      reduced float32 model served on the card (its attention on the
      CUDA-core kernel, launches counted) and on the CPU must agree;
-  6. checks each kernel's launch count from its own path and that the
-     verifier's hashlib fallback never fired, and prints the kernel table.
+  6. counts with torch.profiler the CUDA kernels a SHA-256 call runs (one;
+     last, since a traced process launches more slowly afterwards), checks
+     each kernel's launch count from its own path (21 SHA-256 and 28
+     Merkle-level launches a mining path) and that the verifier's hashlib
+     fallback never fired, and prints the kernel table.
 Each phase prints one JSON line. The last line is the result. Any failure
 raises and exits non-zero; without a card the script exits non-zero before
 printing any result.
@@ -57,31 +66,51 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # 32-bit instructions one SHA-256 compression needs, counted as sm_90 runs
-# them: a rotate or shift is one funnel shift, a three-input xor, Ch or Maj
-# is one LOP3, and up to three summands are one IADD3. A round is 6
-# rotates, 4 LOP3 and 4 IADD3 (h + S1 + Ch + K + W takes two, the new e and
-# a one each); a schedule step is 4 shifts, 2 LOP3 and 2 IADD3; then come
-# the 8 final adds. The Merkle parent's second compression reads K + W from
-# a table and has no schedule. A byte swap on load is one PRMT per word.
-OPS_ROUND, OPS_SCHEDULE = 14, 10
-OPS_COMPRESSION = 64 * OPS_ROUND + 48 * OPS_SCHEDULE + 8
-OPS_PAD_COMPRESSION = 64 * OPS_ROUND + 8
-WORD_BYTES = 4      # a word is 32 bits, whatever the tensor holding it
-# H100 SXM: 3.35 TB/s of HBM3. Instructions: 132 SMs x 4 schedulers x 32
-# lanes x 1.98 GHz, the issue rate behind the data sheet's 67 TFLOP/s in
-# float32 (an FMA counts as two flops). Integer adds also issue to the FMA
-# pipe as IMAD, so the 64 INT32 lanes of an SM are not the limit.
+# them: a rotate or shift is one funnel shift (SHF), a three-input xor, Ch
+# or Maj is one LOP3, and up to three summands are one IADD3. A round is 6
+# rotates, 4 LOP3 and 4 adds (h + S1 + Ch, then + K + W, take two; the new
+# e and a one each); a schedule step is 6 shifts (three for each small
+# sigma), 2 LOP3 and 2 adds; then come the 8 final adds. The Merkle
+# parent's second compression reads K + W from a table and has no
+# schedule. A byte swap on load is one PRMT per word.
+# By pipe: SHF, LOP3 and PRMT issue only to the integer pipe; an add may be
+# an IADD3 there or an IMAD on the FMA pipe, so the least time leaves the
+# integer pipe the shifts and logic alone.
+INT_ROUND, ADD_ROUND = 10, 4
+INT_SCHEDULE, ADD_SCHEDULE = 8, 2
+
+
+def compression_ops(schedule: bool = True) -> dict:
+    """Instructions of one compression by where they can issue: "int"
+    (integer pipe only) and "add" (integer or FMA pipe)."""
+    steps = 48 if schedule else 0
+    return {"int": 64 * INT_ROUND + steps * INT_SCHEDULE,
+            "add": 64 * ADD_ROUND + steps * ADD_SCHEDULE + 8}
+
+
+OPS_COMPRESSION = sum(compression_ops().values())              # 1,384
+OPS_PAD_COMPRESSION = sum(compression_ops(False).values())     # 904
+# a 32-bit word as the port's tensors hold it, int64: both hash bounds count
+# the bytes of the functions' int64 inputs and outputs, the interface's cost
+WORD_BYTES = 8
+# H100 SXM: 3.35 TB/s of HBM3. Issue: 132 SMs x 4 schedulers x one warp
+# instruction (32 lanes) a cycle x 1.98 GHz, the rate behind the data
+# sheet's 67 TFLOP/s in float32 (an FMA counts as two flops). The integer
+# pipe takes half a warp instruction a scheduler and cycle (16 lanes),
+# as chip_probes.py's int_issue probe measures for LOP3, SHF and IADD3
+# alone and in pairs on the H100; IMAD goes to the FMA pipe beside it.
 HBM_BYTES_S = 3.35e12
 ISSUE_OPS_S = 132 * 128 * 1.98e9
+INT_PIPE_OPS_S = 132 * 64 * 1.98e9
 # dense bf16 tensor-core peak (data sheet): the peak rate for attention's
 # bf16 inputs, whichever units a kernel uses
 BF16_FLOPS_S = 989e12
 # float32 outside the tensor cores (data sheet): the recurrences' rate
 F32_FLOPS_S = 67e12
-# instantiations in the library: SHA-256 3 (raw/bswap), Merkle 1, flash
-# 4 head dims x 2 dtypes, tensor-core flash 3 head dims (bf16), WKV-6 2
-# dtypes, decay scan 1
-N_KERNEL_INSTANCES = 3 + 1 + 8 + 3 + 2 + 1
+# instantiations in the library: SHA-256 3 (raw/bswap) x 3 (W = 2, 8 or
+# any), Merkle 1, flash 4 head dims x 2 dtypes, tensor-core flash 3 head
+# dims (bf16), WKV-6 2 dtypes, decay scan 2 (tiled, one thread a chain)
+N_KERNEL_INSTANCES = 9 + 1 + 8 + 3 + 2 + 2
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -90,6 +119,9 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 # both run at full width
 RWKV_PROMPT, RG_PROMPT = 2048, 4096
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the kernels' tiles, constants in their sources, which the edge cases
+# follow: the decay scan's STEPS x 32 DECAY_WARPS, SHA-256's THREADS rows
+DECAY_STEPS, DECAY_CHANNELS, SHA_BLOCK_ROWS = 128, 64, 64
 # relative plus absolute, float32 state and sums in both versions
 DECAY_TOL, WKV_TOL = 1e-5, 1e-4
 
@@ -105,10 +137,25 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ISSUE_OPS_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else \
-        "operations"
+def hash_bound_ms(nbytes: float, compressions: float,
+                  pad_compressions: float = 0, swaps: float = 0):
+    """The hash kernels' bound: bytes at the HBM rate against each pipe's
+    instructions at its rate (the integer pipe's shifts, logic and byte
+    swaps; every instruction at the issue rate), the busiest of the three.
+    Returns (ms, "bytes" or "operations", the arithmetic)."""
+    full, pad = compression_ops(), compression_ops(False)
+    int_ops = compressions * full["int"] + pad_compressions * pad["int"] \
+        + swaps
+    all_ops = int_ops + compressions * full["add"] \
+        + pad_compressions * pad["add"]
+    t_bytes = nbytes / HBM_BYTES_S
+    t_int, t_issue = int_ops / INT_PIPE_OPS_S, all_ops / ISSUE_OPS_S
+    t = max(t_bytes, t_int, t_issue)
+    return t * 1e3, "bytes" if t == t_bytes else "operations", (
+        f"max({nbytes:.4g} B / 3.35e12, {int_ops:.4g} integer-pipe "
+        f"instructions / {INT_PIPE_OPS_S:.4g}, {all_ops:.4g} instructions "
+        f"/ {ISSUE_OPS_S:.4g}) = max({t_bytes * 1e3:.4g}, "
+        f"{t_int * 1e3:.4g}, {t_issue * 1e3:.4g}) ms")
 
 
 def kernel_name(mangled: str) -> str:
@@ -117,12 +164,14 @@ def kernel_name(mangled: str) -> str:
     import re
     found = re.search(r"(sha256_rows_kernel|merkle_level_kernel|"
                       r"flash_fwd_kernel|flash_tc_kernel|wkv6_kernel|"
-                      r"decay_scan_kernel)", mangled)
+                      r"decay_scan_per_chain_kernel|decay_scan_kernel)",
+                      mangled)
     check(found is not None, f"known kernel name in {mangled}")
     name = found[1]
-    flags = re.search(r"ILb(\d)ELb(\d)E", mangled)
+    flags = re.search(r"ILb(\d)ELb(\d)ELi(\d+)E", mangled)
     if flags:
-        name += f"<raw={flags[1]},bswap={flags[2]}>"
+        w = flags[3] if flags[3] != "0" else "any"
+        name += f"<raw={flags[1]},bswap={flags[2]},w={w}>"
     targs = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+))?E", mangled)
     hd = re.search(r"ILi(\d+)E", mangled)
     if name == "flash_tc_kernel":
@@ -526,29 +575,43 @@ def flash_window_vs_plain(dev) -> dict:
 
 def decay_vs_plain(dev) -> dict:
     """The decay-scan kernel against its plain version: C in {1, 129,
-    2560}, S in {1, 37, 4096}, with and without h0, and a chunked call
-    equal to a whole one."""
+    2560}, S in {1, 37, 4096}, with and without h0; the tiled kernel's
+    chunk and tile edges (S in {0, 1, L - 1, L, L + 1, 2L + 3} for its
+    chunk of L steps, C in {1, 31, 33, 129, 2560}, B 1 and 8, with and
+    without h0); every case also equal bit for bit to the one-thread-a-chain
+    kernel and to a second launch; and a chunked call equal to a whole
+    one."""
     import torch
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.decay_scan import decay_scan_cuda
+    from repro_torch.kernels import decay_scan, ops, ref
     gen = torch.Generator(device=dev).manual_seed(20264)
     worst, n = 0.0, 0
-    for c in (1, 129, 2560):
-        for steps in (1, 37, 4096):
-            a = torch.rand((2, steps, c), generator=gen, device=dev) * 0.7 \
-                + 0.3
-            b = torch.randn((2, steps, c), generator=gen, device=dev)
-            for h0 in (torch.randn((2, c), generator=gen, device=dev), None):
-                got, last = decay_scan_cuda(a, b, h0)
-                want = ref.decay_scan_ref(a, b, h0)
+    L = DECAY_STEPS
+    cases = [(2, c, s) for c in (1, 129, 2560) for s in (1, 37, 4096)]
+    cases += [(b, c, s) for b in (1, 8) for c in (1, 31, 33, 129, 2560)
+              for s in (0, 1, L - 1, L, L + 1, 2 * L + 3)]
+    for batch, c, steps in cases:
+        a = torch.rand((batch, steps, c), generator=gen, device=dev) * 0.7 \
+            + 0.3
+        b = torch.randn((batch, steps, c), generator=gen, device=dev)
+        for h0 in (torch.randn((batch, c), generator=gen, device=dev), None):
+            got, last = decay_scan.decay_scan_cuda(a, b, h0)
+            again = decay_scan.decay_scan_cuda(a, b, h0)
+            chain = decay_scan.decay_scan_cuda_per_chain(a, b, h0)
+            what = f"decay scan B={batch} C={c} S={steps} " \
+                   f"h0={h0 is not None}"
+            check(torch.equal(got, again[0]) and torch.equal(last, again[1]),
+                  what + ": two launches equal")
+            check(torch.equal(got, chain[0]) and torch.equal(last, chain[1]),
+                  what + ": equal to the one-thread-a-chain kernel")
+            want = ref.decay_scan_ref(a, b, h0)
+            want_last = want[:, -1] if steps else (
+                h0 if h0 is not None else torch.zeros_like(last))
+            if steps:
                 worst = max(worst, float((got - want).abs().max()))
-                check(torch.allclose(got, want, rtol=DECAY_TOL,
-                                     atol=DECAY_TOL)
-                      and torch.allclose(last, want[:, -1], rtol=DECAY_TOL,
-                                         atol=DECAY_TOL),
-                      f"decay scan C={c} S={steps} h0={h0 is not None} "
-                      "vs plain")
-                n += 1
+            check(torch.allclose(got, want, rtol=DECAY_TOL, atol=DECAY_TOL)
+                  and torch.allclose(last, want_last, rtol=DECAY_TOL,
+                                     atol=DECAY_TOL), what + " vs plain")
+            n += 1
     a = torch.rand((3, 300, 2560), generator=gen, device=dev) * 0.7 + 0.3
     b = torch.randn((3, 300, 2560), generator=gen, device=dev)
     h0 = torch.randn((3, 2560), generator=gen, device=dev)
@@ -557,7 +620,81 @@ def decay_vs_plain(dev) -> dict:
     check(torch.allclose(parts, whole, rtol=DECAY_TOL, atol=DECAY_TOL)
           and torch.allclose(parts_last, whole_last, rtol=DECAY_TOL,
                              atol=DECAY_TOL), "decay scan chunked = whole")
-    return {"cases": n + 1, "max_abs_err": worst, "tolerance": DECAY_TOL}
+    return {"cases": n + 1, "max_abs_err": worst, "tolerance": DECAY_TOL,
+            "tile": {"steps": L, "channels": DECAY_CHANNELS},
+            "equal_bits_to_per_chain_kernel": True,
+            "equal_bits_launch_to_launch": True}
+
+
+def sha_vs_hashlib(dev) -> dict:
+    """The SHA-256 kernel against hashlib on every row: W = 1..20 (across
+    the 55/56-byte edge where the length needs a second block), N not a
+    multiple of the kernel's block of rows, raw, bswap and both, words at
+    and above 2**31 in their int64 tensor as given; views that start 8
+    bytes past a 16-byte boundary (the 8-byte loads); N = 0 (no launch)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref, sha256
+    rng = np.random.RandomState(20268)
+    n = SHA_BLOCK_ROWS * 3 + 17
+    cases = 0
+    for w in range(1, 21):
+        host = rng.randint(0, 2**32, (n, w), dtype=np.uint64).astype(np.int64)
+        host.flat[0], host.flat[-1] = 2**32 - 1, 2**31
+        msg = torch.from_numpy(host).to(dev)
+        want = {False: ref.sha256_words_hashlib(host),
+                True: ref.sha256_words_hashlib(
+                    ref.bswap32(torch.from_numpy(host)).numpy())}
+        for raw, bswap in ((True, True), (True, False), (False, True)):
+            got = sha256.sha256_rows_cuda(msg, raw=raw, bswap=bswap)
+            for out, swap in zip(got, (False, True)):
+                if out is not None:
+                    check(np.array_equal(out.cpu().numpy(), want[swap]),
+                          f"sha256 W={w} N={n} raw={raw} bswap={bswap} "
+                          f"{'bswap' if swap else 'raw'} vs hashlib")
+            cases += 1
+    flat = torch.from_numpy(rng.randint(0, 2**32, 8 * 999 + 1,
+                                        dtype=np.uint64).astype(np.int64))
+    for w in (2, 4, 8):
+        view = flat.to(dev)[1:].view(-1, w)
+        check(view.data_ptr() % 16 == 8, "unaligned view")
+        check(np.array_equal(
+            sha256.sha256_rows_cuda(view)[0].cpu().numpy(),
+            ref.sha256_words_hashlib(flat[1:].view(-1, w).numpy())),
+            f"sha256 unaligned view at W={w} vs hashlib")
+    before = sha256.launches
+    empty = sha256.sha256_rows_cuda(
+        torch.zeros((0, 3), dtype=torch.int64, device=dev), raw=True,
+        bswap=True)
+    check(sha256.launches == before
+          and all(e.shape == (0, 8) for e in empty), "sha256 N = 0")
+    return {"cases": cases + 4, "rows": n, "equal_to_hashlib": True}
+
+
+def sha_kernels_a_call(dev) -> dict:
+    """The CUDA kernels 5 ``sha256_rows_cuda`` calls run, counted by
+    ``torch.profiler``. The last phase: once the profiler has traced, the
+    host's cost of every later launch grows, which would move the
+    host-bound timings and paths."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import sha256
+    gen = torch.Generator(device=dev).manual_seed(20269)
+    chunk = torch.randint(0, 2**32, (1 << 16, 2), generator=gen, device=dev,
+                          dtype=torch.int64)
+    sha256.sha256_rows_cuda(chunk, raw=True, bswap=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            sha256.sha256_rows_cuda(chunk, raw=True, bswap=True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type.name == "CUDA"]
+    check(len(kernels) == 5
+          and all("sha256_rows_kernel" in k for k in kernels),
+          f"one CUDA kernel a sha256_rows_cuda call: {kernels}")
+    return {"phase": "sha256_kernels_a_call", "calls": 5,
+            "cuda_kernels": len(kernels), "kernel": kernels[0]}
 
 
 def _wkv_inputs(shape, dtype, gen, dev):
@@ -624,17 +761,22 @@ def recurrent_times(dev) -> dict:
     paths give them, with each bound."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decay_scan import decay_scan_cuda
+    from repro_torch.kernels.decay_scan import (decay_scan_cuda,
+                                                decay_scan_cuda_per_chain)
     from repro_torch.kernels.wkv6 import wkv6_cuda
     gen = torch.Generator(device=dev).manual_seed(20266)
     out = {}
 
-    # decay scan: recurrentgemma's prefill, (8, 4096, 2560) from h0
+    # decay scan: recurrentgemma's prefill, (8, 4096, 2560) from h0; the
+    # tiled kernel and the one-thread-a-chain one in turns
     B, S, C = SERVE_BATCH, RG_PROMPT, 2560
     a = torch.rand((B, S, C), generator=gen, device=dev) * 0.7 + 0.3
     b = torch.randn((B, S, C), generator=gen, device=dev)
     h0 = torch.randn((B, C), generator=gen, device=dev)
-    ms = cuda_ms(lambda: decay_scan_cuda(a, b, h0))
+    both = in_turns({
+        "tiled": lambda: decay_scan_cuda(a, b, h0),
+        "per_chain": lambda: decay_scan_cuda_per_chain(a, b, h0)})
+    ms = both["tiled"]
     plain_ms = cuda_ms(lambda: ref.decay_scan_ref(a, b, h0), reps=3,
                        rounds=1)
     # a, b read and h written once (float32), h0 read and h_last written;
@@ -646,10 +788,12 @@ def recurrent_times(dev) -> dict:
         "operations"
     out["decay_scan"] = {
         "shape": f"B={B} S={S} C={C} float32, h0", "ms": ms,
+        "per_chain_kernel_ms": both["per_chain"],
         "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
         "library_ms": None,
         "bound_arithmetic": f"max({nbytes:.4g} B / 3.35e12, {flops:.4g} "
                             "flops / 67e12)",
+        "share_of_bound": bnd / ms,
         "gb_per_s": nbytes / (ms * 1e-3) / 1e9}
     del a, b, h0
 
@@ -963,6 +1107,15 @@ def main() -> int:
     lib, log = native.build()
     native.library()
     build_s = time.perf_counter() - t0
+    # every wrapper launches on native.stream_of's raw handle, read through
+    # a private accessor of torch's: it must name the current stream
+    probe = torch.zeros(1, device=dev)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        check(native.stream_of(probe) == side.cuda_stream,
+              "native.stream_of names a side stream")
+    check(native.stream_of(probe) == torch.cuda.current_stream().cuda_stream,
+          "native.stream_of names the current stream")
     emit({"phase": "environment", "gpu": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1002,6 +1155,8 @@ def main() -> int:
         sha_rows.append({"n": n, "w": w, "raw": want_r, "bswap": want_b,
                          "equal": True})
         del msg, got, out, src
+    sha_edge = sha_vs_hashlib(dev)
+    emit({"phase": "sha256_vs_hashlib", **sha_edge})
 
     def plain_reduce(rows):
         while rows.shape[2] > merkle._CUTOVER:
@@ -1072,8 +1227,10 @@ def main() -> int:
         msg = words(n, w)
         nb = (w * 32 + 1 + 64 + 511) // 512
         outs = int(raw) + int(bswap)
-        ms = cuda_ms(lambda: sha256.sha256_rows_cuda(msg, raw=raw,
-                                                     bswap=bswap))
+
+        def call():
+            sha256.sha256_rows_cuda(msg, raw=raw, bswap=bswap)
+        ms, dev_ms = cuda_ms(call), graph_ms(call)
 
         def plain():
             if raw:
@@ -1081,28 +1238,40 @@ def main() -> int:
             if bswap:
                 ref.sha256_words_ref(ref.bswap32(msg))
         plain_ms = cuda_ms(plain, reps=3, rounds=1)
-        b, by = bound_ms(WORD_BYTES * n * (w + 8 * outs),
-                         n * nb * outs * OPS_COMPRESSION + bswap * n * w)
+        # int64 words in, int64 digest words out, as the kernel takes them
+        b, by, arith = hash_bound_ms(WORD_BYTES * n * (w + 8 * outs),
+                                     n * nb * outs, swaps=bswap * n * w)
         return {"shape": f"N={n} W={w} raw={raw} bswap={bswap}", "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                "msgs_per_s": n / (ms * 1e-3)}
+                "device_ms_from_graph": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": b, "bound_by": by, "bound_arithmetic": arith,
+                "share_of_bound_from_graph": b / dev_ms,
+                "msgs_per_s": n / (dev_ms * 1e-3)}
 
     sha_times = [sha_case(1 << 16, 2, True, True),     # full-mode chunk
                  sha_case(1 << 20, 2, True, False),    # classic, hash 1
                  sha_case(1 << 20, 8, True, False)]    # classic, hash 2
     leaves = 1 << MAIN_BITS
     mrows = words(8, 1, leaves)
-    parents, width = 0, leaves
+    parents, width, levels = 0, leaves, 0
     while width > merkle._CUTOVER:
         width = (width + 1) // 2
         parents += width
+        levels += 1
     m_ms = cuda_ms(lambda: merkle._reduce(mrows, False))
     m_plain = cuda_ms(lambda: plain_reduce(mrows), reps=3, rounds=1)
-    m_bound, m_by = bound_ms(WORD_BYTES * 8 * (leaves + width),
-                             parents * (OPS_COMPRESSION + OPS_PAD_COMPRESSION))
-    merkle_time = {"shape": f"(8, 1, {leaves}) -> width {width}",
-                   "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
-                   "bound_by": m_by, "nodes_per_s": parents / (m_ms * 1e-3)}
+    m_bound, m_by, m_arith = hash_bound_ms(
+        WORD_BYTES * 8 * (leaves + width), parents, pad_compressions=parents)
+    # ms and launches in one unit: a launch is one level, so each time is
+    # the reduction's over its levels
+    merkle_time = {"shape": f"(8, 1, {leaves}) -> width {width}, "
+                            f"{levels} levels; ms per level",
+                   "levels": levels, "ms": m_ms / levels,
+                   "plain_ms": m_plain / levels,
+                   "bound_ms": m_bound / levels, "bound_by": m_by,
+                   "reduction_ms": m_ms, "reduction_plain_ms": m_plain,
+                   "reduction_bound_ms": m_bound,
+                   "bound_arithmetic": m_arith,
+                   "nodes_per_s": parents / (m_ms * 1e-3)}
     flash_time = flash_times(dev)
     emit({"phase": "flash_times", "gpu": smi, **flash_time})
     core_f32 = flash_core_f32_times(dev)
@@ -1238,10 +1407,14 @@ def main() -> int:
     }
     for res in served.values():
         emit(res)
+    emit(sha_kernels_a_call(dev))
 
     # -- 6. launch counts and the kernel table -------------------------------
-    check(counts["sha256"] > 0 and counts["merkle"] > 0,
-          "both hash kernels launched on the mining path")
+    # the path's launches do not depend on the kernels' speed: 21 SHA-256
+    # calls, and two device reductions of 14 levels each
+    check(counts["sha256"] == 21 and counts["merkle"] == 28,
+          f"21 SHA-256 and 28 Merkle-level launches on the mining path: "
+          f"{counts}")
     check(counts["hashlib_fallbacks"] == 0, "hashlib fallback never fired")
     check(all(counts[k] == 0 for k in ENTRY_OF),
           "no serving kernel launched on the mining path")
@@ -1274,10 +1447,14 @@ def main() -> int:
                 "shape": times["shape"], "matched": True, **extra}
     emit({"kernels": [
         row("sha256_rows", "sha256", "sha256.cu", "sha256.py:34",
-            counts["sha256"], {**chunk, "library_ms": None}, path="mining"),
+            counts["sha256"], {**chunk, "library_ms": None}, path="mining",
+            device_ms_from_graph=chunk["device_ms_from_graph"],
+            classic_shapes=sha_times[1:]),
         row("merkle_level", "merkle", "merkle.cu", "merkle.py:132",
             counts["merkle"], {**merkle_time, "library_ms": None},
-            path="mining"),
+            path="mining", unit="ms per level; launches are levels "
+                              "(two 14-level reductions)",
+            reduction_ms=merkle_time["reduction_ms"]),
         row("flash_attention_tc", "flash_attention_tc",
             "flash_attention_tc.cu", "flash_attention.py:28",
             qwen["flash_attention_tc"] + rg["flash_attention_tc"],

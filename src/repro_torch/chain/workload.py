@@ -73,7 +73,28 @@ class BlockPayload:
 
     The committed fields (``jash_id`` .. ``state_digest``) are what the
     ledger header signs; the evidence fields carry enough for a peer to
-    re-verify bit-exactly."""
+    re-verify bit-exactly (in-process today, serialized on the wire
+    later). The port's full, optimal and classic workloads fill none of
+    ``loss`` .. ``micro_proof``; they keep the reference's names, order
+    and defaults so later workloads and the journal read one layout.
+
+    ``certificate`` is the verify-cheap evidence channel: a workload
+    whose block carries a succinct proof (a SAT witness, an inclusion
+    path, ...) puts the raw certificate bytes here and commits
+    ``certificate_digest(certificate)`` as the block's ``state_digest``,
+    so the header signs the certificate and a tampered certificate under
+    an honest header fails the digest cross-check before the workload
+    looks at it. Stateful workloads instead use ``state_digest`` for
+    their chained state commitment; a workload is one or the other.
+    ``train_height`` doubles as the generic stateful sequence index: the
+    position of this block in the workload's own state chain (train step
+    for training, refinement round for GAN inversion). ``micro_proof`` is
+    the model-training evidence channel: a ``(block_microsteps, 64)
+    uint8`` array of per-microstep ``(batch_digest, metrics_digest)``
+    sha256 pairs whose leaves re-derive ``merkle_root``; a verifier
+    checks the binding cheaply, then replays the microsteps and must
+    reproduce every row bit-exactly (so a divergence is attributed to its
+    exact microstep)."""
     workload: str                      # "full" | "optimal" | "classic"
     jash_id: str
     merkle_root: str
@@ -87,6 +108,24 @@ class BlockPayload:
     jash: Optional[Jash] = None
     full: Optional[FullResult] = None
     best_arg: Optional[int] = None
+    loss: Optional[float] = None
+    train_height: Optional[int] = None
+    n_miners: int = 1
+    certificate: Optional[bytes] = None
+    micro_proof: Optional[np.ndarray] = None
+
+
+def certificate_digest(cert: Optional[bytes]) -> str:
+    """Consensus binding for verify-cheap certificates: the hex digest a
+    certificate-carrying workload commits as the block's
+    ``state_digest``. ``None`` (no certificate) maps to the empty string,
+    the value certificate-free blocks commit, so "this block claims no
+    certificate" is itself header-signed: a relay can neither strip a
+    certificate nor graft one on without breaking the digest
+    cross-check."""
+    if cert is None:
+        return ""
+    return hashlib.sha256(b"certificate:" + cert).hexdigest()
 
 
 RewardEntries = Tuple[Tuple[int, float], ...]

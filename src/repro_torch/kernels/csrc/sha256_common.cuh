@@ -1,7 +1,8 @@
 // SHA-256 building blocks shared by sha256.cu and merkle.cu.
 //
 // Words are native uint32 here. The Python side keeps 32-bit words in int64
-// tensors and hands the kernels int32 buffers, which C reads as uint32_t.
+// tensors: sha256.cu reads their low halves itself, merkle.cu is handed
+// int32 buffers, which C reads as uint32_t.
 #pragma once
 
 #include <cstdint>

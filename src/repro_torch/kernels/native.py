@@ -7,10 +7,11 @@ C interface, and loaded with ``ctypes``. The build runs at first use, into
 while the sources and flags stay the same. Nothing is built on import: the
 CPU tests import every module on a machine with no ``nvcc``.
 
-The hash kernels take 32-bit words as int32 buffers (read as ``uint32_t`` in C);
-the port keeps words in int64 tensors masked to 32 bits. ``to_i32`` and
-``from_i32`` convert explicitly at that boundary, so words at or above 2**31
-keep their bits.
+The port keeps 32-bit words in int64 tensors masked to 32 bits. The SHA-256
+kernel reads and writes those int64 words itself (the low 32 bits of each);
+the Merkle kernel takes int32 buffers (read as ``uint32_t`` in C), and
+``to_i32`` and ``from_i32`` convert explicitly at that boundary, so words at
+or above 2**31 keep their bits.
 """
 from __future__ import annotations
 
@@ -113,7 +114,7 @@ def library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    lib.pnp_sha256_rows.argtypes = [vp, i64, i32, vp, vp, vp]
+    lib.pnp_sha256_rows.argtypes = [vp, i64, i32, vp, vp, i32, vp]
     lib.pnp_sha256_rows.restype = ctypes.c_int
     lib.pnp_merkle_level.argtypes = [vp, i64, i64, vp, vp]
     lib.pnp_merkle_level.restype = ctypes.c_int
@@ -128,8 +129,14 @@ def library() -> ctypes.CDLL:
     lib.pnp_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
                              i32, i32, i32, vp]
     lib.pnp_wkv6.restype = ctypes.c_int
-    lib.pnp_decay_scan.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, vp]
+    lib.pnp_decay_scan.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, vp,
+                                   vp]
     lib.pnp_decay_scan.restype = ctypes.c_int
+    lib.pnp_decay_scan_per_chain.argtypes = [vp, vp, vp, vp, vp, i64, i64,
+                                             i64, vp]
+    lib.pnp_decay_scan_per_chain.restype = ctypes.c_int
+    lib.pnp_decay_scan_workspace_words.argtypes = [i64, i64]
+    lib.pnp_decay_scan_workspace_words.restype = ctypes.c_int64
     return lib
 
 
@@ -185,7 +192,12 @@ def check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on ``t``'s card (read without
+    building a ``torch.cuda.Stream``: a launch's host time counts where the
+    kernel is short). The accessor is private to torch: chip_smoke.py and
+    ``test_stream_handle_is_the_current_streams`` hold it to
+    ``torch.cuda.current_stream().cuda_stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_launch(name: str, rc: int) -> None:

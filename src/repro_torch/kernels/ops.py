@@ -53,7 +53,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _decay_scan_plain(a, b, h0):
     h = ref.decay_scan_ref(a, b, h0)
-    return h, h[:, -1]
+    if a.shape[1]:
+        return h, h[:, -1]
+    return h, (a.new_zeros((a.shape[0], a.shape[2])) if h0 is None
+               else h0.float().clone())
 
 
 def decay_scan(a: torch.Tensor, b: torch.Tensor,

@@ -141,7 +141,8 @@ def decay_scan_ref(a: torch.Tensor, b: torch.Tensor,
     """h_t = a_t * h_{t-1} + b_t over (B, S, C), from h0 (B, C) or zeros.
     float32 inside, returned in a's dtype."""
     a32, b32 = a.float(), b.float()
-    h = (torch.zeros_like(a32[:, 0]) if h0 is None else h0.float())
+    h = (a32.new_zeros((a.shape[0], a.shape[2])) if h0 is None
+         else h0.float())
     out = torch.empty_like(a32)
     for t in range(a.shape[1]):
         h = a32[:, t] * h + b32[:, t]

@@ -1,10 +1,12 @@
 """Binding of the hand-written CUDA SHA-256 kernel (``csrc/sha256.cu``).
 
 It replaces the Pallas kernel of ``repro/kernels/sha256.py``. The kernel
-pads each row itself and can write two digests in one launch: of the words
-as given (``raw``) and of the words byte-swapped (``bswap``).
-``kernels/ops.py`` sends CUDA tensors here and CPU tensors to the plain
-version in ``kernels/ref.py``.
+reads the port's int64 words and writes int64 digest words itself, pads
+each row itself, and can write two digests in one launch: of the words as
+given (``raw``) and of the words byte-swapped (``bswap``). A call allocates
+its outputs and launches that one kernel, nothing else. ``kernels/ops.py``
+sends CUDA tensors here and CPU tensors to the plain version in
+``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -25,25 +27,27 @@ def sha256_rows_cuda(msg: torch.Tensor, *, raw: bool = True,
     """msg: (N, W) int64 words on a CUDA card -> (raw, bswap) digests,
     each (N, 8) int64 words, or None where not asked for."""
     global launches
+    # the host's time counts here (a chunk's kernel runs ~15 us), so the
+    # C entry makes the card current itself, with no device context here
     native.check_cuda_words("sha256_rows_cuda", msg, 2)
     n, w = msg.shape
     if w < 1:
         raise ValueError("sha256_rows_cuda: messages need at least one word")
     if not (raw or bswap):
         raise ValueError("sha256_rows_cuda: ask for raw, bswap or both")
-    m32 = native.to_i32(msg)
-    out_raw = torch.empty((n, 8), dtype=torch.int32, device=msg.device) \
-        if raw else None
-    out_bsw = torch.empty((n, 8), dtype=torch.int32, device=msg.device) \
-        if bswap else None
-    if n:
-        with torch.cuda.device(msg.device):
-            rc = native.library().pnp_sha256_rows(
-                m32.data_ptr(), n, w,
-                out_raw.data_ptr() if raw else None,
-                out_bsw.data_ptr() if bswap else None,
-                native.stream_of(msg))
-        launches += 1
-        native.check_launch("sha256_rows_cuda", rc)
-    return (native.from_i32(out_raw) if raw else None,
-            native.from_i32(out_bsw) if bswap else None)
+    dev = msg.device
+    if raw and bswap:
+        out_raw, out_bsw = torch.empty((2, n, 8), dtype=torch.int64,
+                                       device=dev).unbind(0)
+    else:
+        out = torch.empty((n, 8), dtype=torch.int64, device=dev)
+        out_raw, out_bsw = (out, None) if raw else (None, out)
+    if not n:
+        return out_raw, out_bsw
+    rc = native.library().pnp_sha256_rows(
+        msg.data_ptr(), n, w, out_raw.data_ptr() if raw else None,
+        out_bsw.data_ptr() if bswap else None, dev.index,
+        native.stream_of(msg))
+    native.check_launch("sha256_rows_cuda", rc)
+    launches += 1
+    return out_raw, out_bsw

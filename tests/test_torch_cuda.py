@@ -12,8 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (decay_scan, flash_attention,  # noqa: E402
-                                 flash_attention_tc, merkle, ops, ref, sha256,
-                                 wkv6)
+                                 flash_attention_tc, merkle, native, ops, ref,
+                                 sha256, wkv6)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +54,73 @@ def test_sha256_kernel_matches_plain_version(card, n, w, outputs):
         got[0].cpu().numpy() if raw else got[1].cpu().numpy(),
         ref.sha256_words_hashlib(
             msg.numpy() if raw else ref.bswap32(msg).numpy()))
+
+
+def _hashlib_rows(msg):
+    return ref.sha256_words_hashlib(msg.numpy())
+
+
+@pytest.mark.parametrize("w", range(1, 21))
+def test_sha256_kernel_equals_hashlib_across_padding_edges(card, w):
+    # W 13/14 put the message at 52/56 bytes, either side of the 55-byte
+    # edge where the length needs a second block; N is not a multiple of
+    # the kernel's block of 64 rows; words span [0, 2**32) as int64, no
+    # conversion on the way in
+    n = 64 * 3 + 17
+    msg = _words((n, w), 1000 + w)
+    want_raw = _hashlib_rows(msg)
+    want_bsw = _hashlib_rows(ref.bswap32(msg))
+    for raw, bswap in ((True, True), (True, False), (False, True)):
+        got_raw, got_bsw = sha256.sha256_rows_cuda(msg.to(card), raw=raw,
+                                                   bswap=bswap)
+        if raw:
+            np.testing.assert_array_equal(got_raw.cpu().numpy(), want_raw)
+        if bswap:
+            np.testing.assert_array_equal(got_bsw.cpu().numpy(), want_bsw)
+
+
+_FLAT = 3 * 1000 * 4 + 1
+
+
+@pytest.mark.parametrize("view", [
+    lambda f: f[:-1].view(-1, 4), lambda f: f[1:].view(-1, 4),
+    lambda f: f[:3 * 1000 * 3].view(-1, 9), lambda f: f[1:8001].view(-1, 2),
+    lambda f: f[1:8001].view(-1, 8)],
+    ids=["w4", "w4-unaligned", "w9", "w2-unaligned", "w8-unaligned"])
+def test_sha256_kernel_unaligned_rows(card, view):
+    # a view that starts 8 bytes past a 16-byte boundary takes the 8-byte
+    # loads (also at W = 2 and 8, whose instances fix W), as does odd W
+    msg = view(_words((_FLAT,), 65).to(card))
+    got = sha256.sha256_rows_cuda(msg, raw=True, bswap=True)
+    np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                  _hashlib_rows(msg.cpu()))
+    np.testing.assert_array_equal(
+        got[1].cpu().numpy(), _hashlib_rows(ref.bswap32(msg.cpu())))
+
+
+def test_sha256_no_rows_launches_nothing(card):
+    before = sha256.launches
+    raw, bswap = sha256.sha256_rows_cuda(
+        torch.zeros((0, 5), dtype=torch.int64, device=card), raw=True,
+        bswap=True)
+    assert sha256.launches == before
+    assert raw.shape == bswap.shape == (0, 8)
+    assert raw.dtype == bswap.dtype == torch.int64
+
+
+def test_sha256_call_is_one_kernel(card):
+    from torch.profiler import ProfilerActivity, profile
+    msg = _words((1 << 16, 2), 7).to(card)
+    sha256.sha256_rows_cuda(msg, raw=True, bswap=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sha256.sha256_rows_cuda(msg, raw=True, bswap=True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type.name == "CUDA"]
+    assert len(kernels) == 3 and all("sha256_rows_kernel" in k
+                                     for k in kernels), kernels
 
 
 @pytest.mark.parametrize("B,w", [(1, 1), (1, 2), (1, 65), (1, 4097),
@@ -259,6 +326,68 @@ def test_decay_scan_chunked_equals_whole(card):
     assert decay_scan.launches == before + 7
     torch.testing.assert_close(parts, whole, **DECAY_TOL)
     torch.testing.assert_close(parts_last, whole_last, **DECAY_TOL)
+
+
+# the tiled kernel's chunk and tile edges: S in {0, 1, L - 1, L, L + 1,
+# 2L + 3} for its chunk of L = 128 steps (STEPS in decay_scan.cu), C across
+# its 64-channel tiles
+_L = 128
+
+
+@pytest.mark.parametrize("c", [1, 31, 33, 129, 2560])
+@pytest.mark.parametrize("s", [0, 1, _L - 1, _L, _L + 1, 2 * _L + 3])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("b", [1, 8])
+def test_decay_scan_tiles_equal_one_thread_a_chain(card, b, c, s, with_h0):
+    a, x, h0 = _decay_inputs(b, s, c, card, 7 * c + s + b)
+    h0 = h0 if with_h0 else None
+    got, got_last = decay_scan.decay_scan_cuda(a, x, h0)
+    again, again_last = decay_scan.decay_scan_cuda(a, x, h0)
+    chain, chain_last = decay_scan.decay_scan_cuda_per_chain(a, x, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got_last, again_last)
+    assert torch.equal(got, chain) and torch.equal(got_last, chain_last)
+    want = ref.decay_scan_ref(a, x, h0)
+    want_last = want[:, -1] if s else (
+        h0 if with_h0 else torch.zeros_like(got_last))
+    torch.testing.assert_close(got, want, **DECAY_TOL)
+    torch.testing.assert_close(got_last, want_last, **DECAY_TOL)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_decay_scan_tiles_unaligned_rows(card, offset):
+    # a view 4 bytes past a 16-byte boundary (C % 4 == 0) takes the 4-byte
+    # copies and gives the same bits as the aligned 16-byte ones
+    _, x, h0 = _decay_inputs(3, 300, 260, card, 5)
+    flat = torch.rand(3 * 300 * 260 + 1, device=card) * 0.7 + 0.3
+    av = flat[offset:offset + 3 * 300 * 260].view(3, 300, 260)
+    want, want_last = decay_scan.decay_scan_cuda_per_chain(av, x, h0)
+    got, got_last = decay_scan.decay_scan_cuda(av, x, h0)
+    assert torch.equal(got, want) and torch.equal(got_last, want_last)
+
+
+def test_decay_scan_workspace_is_left_zero(card):
+    # a launch leaves its ticket and carries zero, so launches of other
+    # shapes on the same stream follow it
+    a, x, h0 = _decay_inputs(8, 1000, 2560, card, 11)
+    decay_scan.decay_scan_cuda(a, x, h0)
+    small = _decay_inputs(1, 300, 33, card, 12)
+    decay_scan.decay_scan_cuda(*small)
+    torch.cuda.synchronize()
+    ws = decay_scan._workspace[(card.index or 0,
+                                torch.cuda.current_stream().cuda_stream)]
+    assert int(ws.abs().sum()) == 0
+
+
+def test_stream_handle_is_the_current_streams(card):
+    # every wrapper launches on native.stream_of, which reads torch's private
+    # raw-stream accessor: a torch that drops or changes it fails here
+    t = torch.zeros(1, device=card)
+    assert native.stream_of(t) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert native.stream_of(t) == side.cuda_stream
+    assert native.stream_of(t) == torch.cuda.current_stream().cuda_stream
 
 
 WKV_TOL = dict(rtol=1e-4, atol=1e-4)

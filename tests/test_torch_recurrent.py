@@ -79,6 +79,17 @@ def test_decay_scan_chunk_carry_equals_one_call():
     _close(second, whole[:, 16:], DECAY_TOL)
 
 
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_decay_scan_of_no_steps_keeps_h0(with_h0):
+    # the card's kernel returns h0 (or zeros) as h_last for S = 0; the
+    # plain version does the same
+    a, b, h0 = _decay_inputs((2, 0, 5))
+    h, last = ops.decay_scan(_t(a), _t(b), _t(h0) if with_h0 else None)
+    assert tuple(h.shape) == (2, 0, 5)
+    _close(last, h0 if with_h0 else np.zeros((2, 5), np.float32),
+           dict(rtol=0, atol=0))
+
+
 def test_decay_scan_matches_sequential_python():
     a, b, _ = _decay_inputs((1, 9, 3))
     h, want = np.zeros((1, 3), np.float32), []
