@@ -31,10 +31,22 @@ Prints one JSON line per probe, each with the card's name and power limit
      kernel, in turns;
   8. sha256_blocks: the SHA-256 kernel at the mining path's three shapes
      over threads a block, with and without W fixed at compile time,
-     replayed from a CUDA graph.
-The tile and block sweeps build their variants of the port's sources with
--D flags into their own libraries; the port's library keeps its one tile
-and block.
+     replayed from a CUDA graph;
+  9. flash_tiles: the CUDA-core flash kernel in float32 (causal, TF32 off)
+     over tiles (warps a block, keys a tile, stages of its K and V rings)
+     at qwen3-0.6b's prefill shape, in turns with SDPA's efficient backend,
+     and at pnpcoin-demo's from a CUDA graph;
+ 10. merkle_units: the Merkle reduction over the nodes a block takes in and
+     the levels it reduces them through, at the mining path's 2**20 leaves
+     and a forest of 4 x 2**16, from a CUDA graph;
+ 11. merkle_host: the host clock of a 2**20-leaf full result's
+     ``commit_root()`` split into its steps, and of
+     ``recompute_roots_batched`` on it. ``--src DIR`` imports
+     ``repro_torch`` from DIR/src instead (another tree of this repo, so
+     two trees can be compared in turns in one run).
+The tile, unit and block sweeps build their variants of the port's sources
+with -D flags into their own libraries; the port's library keeps its one
+tile, unit and block.
 Cycles are elapsed time at the card's maximum SM clock (read from
 nvidia-smi). The probes' kernels are built with nvcc into
 ``build/repro_torch_probes/``; the WKV-6 library is built as the port builds
@@ -364,7 +376,7 @@ def main() -> int:
     from repro_torch.kernels import native
     from repro_torch.kernels.wkv6 import wkv6_cuda
 
-    names = set(sys.argv[1:])
+    names = set(a for a in sys.argv[1:] if not a.startswith("--src"))
     unknown = names - set(PROBES)
     if unknown:
         print(f"chip_probes: no probe {sorted(unknown)}; one of {PROBES}",
@@ -447,12 +459,18 @@ def main() -> int:
         probe_decay_tiles(gpu)
     if want("sha256_blocks"):
         probe_sha_blocks(gpu)
+    if want("flash_tiles"):
+        probe_flash_tiles(gpu)
+    if want("merkle_units"):
+        probe_merkle_units(gpu)
+    if want("merkle_host"):
+        probe_merkle_host(gpu)
     return 0
 
 
 PROBES = ("shared_loads", "fp32_issue", "wkv6_step_loop", "wkv6_per_step",
           "int_issue", "memory_in_flight", "decay_scan_tiles",
-          "sha256_blocks")
+          "sha256_blocks", "flash_tiles", "merkle_units", "merkle_host")
 
 
 INT_OPS = {0: "LOP3", 1: "SHF", 2: "IADD3", 3: "IMAD", 4: "LOP3 + IMAD",
@@ -672,5 +690,210 @@ def graph_ms(fn, reps: int = 10) -> float:
     return elapsed_ms(graph.replay) / reps
 
 
+def probe_flash_tiles(gpu: str) -> None:
+    """The CUDA-core flash kernel, float32, causal, over tiles (each built
+    from flash_attention.cu at -D FLASH_WARPS, FLASH_BK and FLASH_STAGES),
+    each within 2e-4 of the plain version and equal from launch to launch:
+    at qwen3-0.6b's prefill shape by events around 10 launches, in turns
+    with SDPA's efficient backend (K and V repeated to H heads, TF32 off);
+    at pnpcoin-demo's shape replayed from a CUDA graph."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ref
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    tiles = [(8, 64, 1), (8, 128, 1), (4, 128, 1), (4, 64, 1), (4, 64, 2),
+             (4, 32, 1), (4, 32, 2), (8, 32, 1)]
+    libs = build_variants("flash_attention.cu", {
+        f"{w} warps x {bk} keys x {st} stages":
+            [f"-DFLASH_WARPS={w}", f"-DFLASH_BK={bk}",
+             f"-DFLASH_STAGES={st}"] for w, bk, st in tiles})
+    for lib in libs.values():
+        lib.pnp_flash_attention_fwd.argtypes = [
+            vp, vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp]
+        lib.pnp_flash_attention_fwd.restype = ctypes.c_int
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    res = {}
+    for shape, (B, S, H, Kv, hd) in {
+            "qwen3-0.6b": (8, 2048, 16, 8, 128),
+            "pnpcoin-demo": (8, 32, 8, 4, 32)}.items():
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+        k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda")
+        v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda")
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        out = torch.empty_like(q)
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+        fns = {"sdpa_efficient": sdpa}
+        for label, lib in libs.items():
+            def call(lib=lib):
+                _ok(lib.pnp_flash_attention_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    B, S, S, H, Kv, hd, 1, 0, 0,
+                    torch.cuda.current_stream().cuda_stream))
+            call()
+            first = out.clone()
+            call()
+            if not (torch.allclose(out, want, rtol=2e-4, atol=2e-4)
+                    and torch.equal(out, first)):
+                raise RuntimeError(f"flash {label} at {shape}: "
+                                   f"{float((out - want).abs().max())}")
+            fns[label] = call
+        if S > 64:
+            times = {key: [] for key in fns}
+            for r in range(2):
+                for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                    times[key].append(elapsed_ms(
+                        lambda: [fns[key]() for _ in range(10)]) / 10)
+            ms = {key: statistics.median(t) for key, t in times.items()}
+        else:
+            ms = {key: graph_ms(fn) for key, fn in fns.items()}
+        res[shape] = {"shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} "
+                               "float32 causal",
+                      "timed": "events, 10 launches, in turns" if S > 64
+                      else "from a CUDA graph", "ms": ms}
+        del q, k, v, want, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    emit({"probe": "flash_tiles", "gpu": gpu, **res})
+
+
+def probe_merkle_units(gpu: str) -> None:
+    """The Merkle reduction over the nodes a block takes in and the levels
+    it reduces them through (each built from merkle.cu at -D
+    MERKLE_LOG_UNIT and MERKLE_SPAN), equal to the port's kernel, at 2**20
+    leaves (one tree) and 4 trees of 2**16, from a CUDA graph of 10
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import merkle
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    units = [(10, 10), (10, 6), (10, 5), (10, 4), (9, 9), (9, 5), (8, 8),
+             (8, 4)]
+    libs = build_variants("merkle.cu", {
+        f"{1 << u} nodes a unit, {span} levels": [
+            f"-DMERKLE_LOG_UNIT={u}", f"-DMERKLE_SPAN={span}"]
+        for u, span in units})
+    for lib in libs.values():
+        lib.pnp_merkle_reduce.argtypes = [vp, i64, i64, i64, i32, vp, vp,
+                                          vp, i32, vp]
+        lib.pnp_merkle_reduce.restype = ctypes.c_int
+        lib.pnp_merkle_workspace_words.argtypes = [i64, i64, i64, i32]
+        lib.pnp_merkle_workspace_words.restype = i64
+    rng = np.random.RandomState(19)
+    res = {}
+    for shape, (B, n) in {"2^20 leaves": (1, 1 << 20),
+                          "4 trees x 2^16": (4, 1 << 16)}.items():
+        d = merkle._to_device(rng.randint(0, 2**32, (B, n, 8),
+                                          dtype=np.uint64)
+                              .astype(np.uint32), "cuda")
+        want = merkle.merkle_reduce(d)[-1]
+        out = torch.empty_like(want)
+        res[shape] = {}
+        for label, lib in libs.items():
+            counters, nodes = (torch.zeros(
+                max(1, lib.pnp_merkle_workspace_words(B, n, merkle._CUTOVER,
+                                                      c)),
+                dtype=torch.int32, device="cuda") for c in (1, 0))
+
+            def call(lib=lib, counters=counters, nodes=nodes):
+                _ok(lib.pnp_merkle_reduce(
+                    d.data_ptr(), B, n, merkle._CUTOVER, 0, out.data_ptr(),
+                    counters.data_ptr(), nodes.data_ptr(), -1,
+                    torch.cuda.current_stream().cuda_stream))
+            call()
+            if not torch.equal(out, want):
+                raise RuntimeError(f"merkle {label} at {shape}")
+            res[shape][label] = graph_ms(call)
+    emit({"probe": "merkle_units", "gpu": gpu,
+          "device_ms_from_graph": res})
+
+
+def probe_merkle_host(gpu: str) -> None:
+    """Host clock, synchronised, of a 2**20-leaf full result's
+    ``commit_root()`` (median of 5) and its steps, and of
+    ``recompute_roots_batched`` on it (median of 3), for the tree whose
+    ``repro_torch`` is imported (this one, or ``--src``'s). Its steps
+    follow that tree's Merkle module: the numpy view (or the transpose and
+    widening of the per-level module), the copy to the card, the
+    reduction, the copy back and the hashlib top."""
+    import time
+
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.core.executor import run_full
+    from repro_torch.core.jash import Jash, JashMeta, collatz_jash
+    from repro_torch.core.verify import recompute_roots_batched
+    from repro_torch.kernels import merkle
+    base = collatz_jash(max_steps=512)
+    job = Jash(base.name, base.fn, JashMeta(arg_bits=20, res_bits=32,
+                                            importance=0.8),
+               example_args=base.example_args)
+    full = run_full(job, device="cuda")
+    dev = full.device
+
+    def split():
+        t = [time.perf_counter()]
+        d = full.leaf_digests[None]
+        if hasattr(merkle, "merkle_reduce"):      # one launch a reduction
+            x = torch.from_numpy(np.ascontiguousarray(
+                d, dtype=np.uint32).view(np.int32))
+        else:                                     # one launch a level
+            x = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(d, np.uint32).transpose(2, 0, 1))
+                .astype(np.int64))
+        t.append(time.perf_counter())
+        x = x.to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        top = merkle.merkle_reduce(x)[-1] \
+            if hasattr(merkle, "merkle_reduce") else merkle._reduce(x, False)[-1]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        top = merkle._to_host(top)[0]
+        t.append(time.perf_counter())
+        root = merkle._host_levels(merkle._words_to_digest_list(top))[-1][0]
+        t.append(time.perf_counter())
+        return root.hex(), [b - a for a, b in zip(t, t[1:])]
+
+    def clock(fn, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return out, statistics.median(times)
+
+    root, total = clock(full.commit_root, 5)
+    parts = [split() for _ in range(5)]
+    if any(r != root for r, _ in parts):
+        raise RuntimeError("commit_root's steps give another root")
+    roots, verify_s = clock(
+        lambda: recompute_roots_batched([full], device=dev), 3)
+    if roots != [root]:
+        raise RuntimeError("recompute_roots_batched gives another root")
+    steps = ("prepare_s", "copy_to_card_s", "reduce_s", "copy_back_s",
+             "hashlib_top_s")
+    emit({"probe": "merkle_host", "gpu": gpu,
+          "tree": str(Path(repro_torch.__file__).resolve().parents[2]),
+          "root": root, "commit_root_s": total,
+          "commit_root_split_s": {
+              k: statistics.median(p[i] for _, p in parts)
+              for i, k in enumerate(steps)},
+          "recompute_roots_batched_s": verify_s})
+
+
 if __name__ == "__main__":
+    for arg in sys.argv[1:]:
+        if arg.startswith("--src="):
+            sys.path.insert(0, str(Path(arg.split("=", 1)[1]).resolve()
+                                   / "src"))
     sys.exit(main())

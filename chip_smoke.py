@@ -9,7 +9,9 @@ On one CUDA card it:
   2. holds each kernel against its plain PyTorch version on the card: the
      hash kernels exactly (integer work) and against hashlib (SHA-256 on
      every row at W = 1..20, N off its block, raw, bswap and both, N = 0,
-     unaligned views), both flash
+     unaligned views; the Merkle reduction at 2**22 and 2**16 leaves, odd
+     widths, a forest of 4 trees, every level kept, one launch a
+     reduction, and a proof against core.ledger's), both flash
      attention kernels (the tensor-core one for bf16 at head dims 64-256,
      the CUDA-core one for the rest and, on the same bf16 inputs, for
      comparison) within 2e-4 (float32) and 2e-2 (bfloat16) over head dims
@@ -27,11 +29,14 @@ On one CUDA card it:
      on the same float32 inputs; WKV-6 at a decode step and SHA-256 at the
      mining path's three shapes, with events around 10 launches and
      replayed from a CUDA graph; the decay scan's tiled and one-thread-a-
-     chain kernels in turns; Merkle in ms per level, its launch unit);
+     chain kernels in turns; a Merkle reduction of 2**20 leaves by events
+     and from a CUDA graph);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
-     then the node's own audit of its chain;
+     then the node's own audit of its chain; then the host clock of the
+     full block's Merkle commit (split into its steps) and of its batched
+     root re-check;
   4. runs a 2-node ``Network`` to convergence;
   5. serves three models at full width and depth through
      ``repro_torch.launch.serve`` (batch 8, 32 new tokens, bf16, random
@@ -45,9 +50,9 @@ On one CUDA card it:
      CUDA-core kernel, launches counted) and on the CPU must agree;
   6. counts with torch.profiler the CUDA kernels a SHA-256 call runs (one;
      last, since a traced process launches more slowly afterwards), checks
-     each kernel's launch count from its own path (21 SHA-256 and 28
-     Merkle-level launches a mining path) and that the verifier's hashlib
-     fallback never fired, and prints the kernel table.
+     each kernel's launch count from its own path (21 SHA-256 and 2
+     Merkle launches, one a reduction, a mining path) and that the
+     verifier's hashlib fallback never fired, and prints the kernel table.
 Each phase prints one JSON line. The last line is the result. Any failure
 raises and exits non-zero; without a card the script exits non-zero before
 printing any result.
@@ -90,8 +95,9 @@ def compression_ops(schedule: bool = True) -> dict:
 
 OPS_COMPRESSION = sum(compression_ops().values())              # 1,384
 OPS_PAD_COMPRESSION = sum(compression_ops(False).values())     # 904
-# a 32-bit word as the port's tensors hold it, int64: both hash bounds count
-# the bytes of the functions' int64 inputs and outputs, the interface's cost
+# a 32-bit word as the port's tensors hold it, int64: SHA-256's bound counts
+# the bytes of its int64 inputs and outputs, the interface's cost (the
+# Merkle reduction takes and gives uint32 words)
 WORD_BYTES = 8
 # H100 SXM: 3.35 TB/s of HBM3. Issue: 132 SMs x 4 schedulers x one warp
 # instruction (32 lanes) a cycle x 1.98 GHz, the rate behind the data
@@ -162,7 +168,7 @@ def kernel_name(mangled: str) -> str:
     """A readable name for a kernel's mangled symbol: the function and its
     template arguments."""
     import re
-    found = re.search(r"(sha256_rows_kernel|merkle_level_kernel|"
+    found = re.search(r"(sha256_rows_kernel|merkle_reduce_kernel|"
                       r"flash_fwd_kernel|flash_tc_kernel|wkv6_kernel|"
                       r"decay_scan_per_chain_kernel|decay_scan_kernel)",
                       mangled)
@@ -327,6 +333,8 @@ def _flash_both(q, k, v, want, label, worst, **kw) -> None:
         if fn is flash_attention.flash_attention_cuda:
             check(used.launches == before + 1,
                   f"flash {label}: launched the {kernel} kernel")
+        check(torch.equal(got, fn(q, k, v, **kw).float()),
+              f"flash {kernel} {label}: two launches equal")
         err = float((got - want).abs().max())
         key = f"{kernel}/{dtype}"
         worst[key] = max(worst.get(key, 0.0), err)
@@ -335,17 +343,25 @@ def _flash_both(q, k, v, want, label, worst, **kw) -> None:
 
 
 def flash_vs_plain(dev) -> dict:
-    """Both flash kernels against their plain version: head dims 32, 64,
-    128; GQA groups 1 and 2; causal and not; S = T in {33, 1000, 2048} and
-    S != T; float32 and bfloat16; the reduced float32 models' own calls
-    (hd 32, batch 2, prompt 100); and the large equal-score case."""
+    """Both flash kernels against their plain version, and each against a
+    second launch: head dims 32, 64, 128; GQA groups 1 and 2; causal and
+    not; S = T in {33, 1000, 2048} and S != T; S and T one off the CUDA-core
+    kernel's block of query rows and tile of keys; float32 and bfloat16;
+    the reduced float32 models' own calls (hd 32, batch 2, prompt 100); and
+    the large equal-score case."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     tile)
     gen = torch.Generator(device=dev).manual_seed(20261)
     cases = [(hd, g, causal, n, n) for hd in (32, 64, 128) for g in (1, 2)
              for causal in (True, False) for n in (33, 1000, 2048)]
     cases += [(hd, 2, False, 700, 1500) for hd in (32, 64, 128)]
+    for hd in (32, 64, 128):
+        bq, bk = tile(hd)["block_rows"], tile(hd)["block_keys"]
+        cases += [(hd, 2, True, bq + 1, bq + 1), (hd, 2, True, bq - 1, bq - 1),
+                  (hd, 1, False, bq + 1, bk - 1),
+                  (hd, 2, False, bk + 1, 2 * bk + 1)]
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         def randn(*shape):
@@ -695,6 +711,175 @@ def sha_kernels_a_call(dev) -> dict:
           f"one CUDA kernel a sha256_rows_cuda call: {kernels}")
     return {"phase": "sha256_kernels_a_call", "calls": 5,
             "cuda_kernels": len(kernels), "kernel": kernels[0]}
+
+
+def _hashlib_root(tree) -> str:
+    """Root of one tree of (n, 8) uint32 leaf digests by hashlib alone."""
+    level = [row.astype(">u4").tobytes() for row in tree]
+    while len(level) > 1:
+        if len(level) % 2:
+            level.append(level[-1])
+        buf = b"".join(level)
+        level = [hashlib.sha256(buf[i:i + 64]).digest()
+                 for i in range(0, len(buf), 64)]
+    return level[0].hex()
+
+
+def merkle_vs_plain(dev) -> dict:
+    """The Merkle reduction kernel against its plain version (every level
+    kept, and the last alone) and, through ``merkle_roots_from_digests``,
+    against hashlib: 2**22 and 2**16 leaves, odd widths (65, 127, 2**16 +
+    1, 3 x 2**14 + 5), forests of 4 trees of 2**16 and 8 of 2**18; each one
+    launch, equal to a second launch, the workspace's counters zero after
+    it; and a proof
+    from the kernel's levels against ``core.ledger``'s hashlib proof."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ledger
+    from repro_torch.kernels import merkle, native
+    rng = np.random.RandomState(20270)
+    # small reductions before large ones too: each leaves the tickets zero
+    # for the next, whatever their sizes
+    cases = [(1, 1 << 22), (1, 1 << 16), (1, 65), (1, 127),
+             (1, (1 << 16) + 1), (1, 3 * (1 << 14) + 5), (4, 1 << 16),
+             (8, 1 << 18)]
+    worst, n_cases = 0, 0
+    for B, n in cases:
+        d = rng.randint(0, 2**32, (B, n, 8), dtype=np.uint64) \
+            .astype(np.uint32)
+        x = merkle._to_device(d, dev)
+        for keep in (False, True):
+            what = f"merkle B={B} n={n} keep_levels={keep}"
+            before = merkle.launches
+            got = merkle.merkle_reduce(x, keep_levels=keep)
+            torch.cuda.synchronize()
+            check(merkle.launches == before + 1, what + ": one launch")
+            want = merkle._reduce_ref(x, keep)
+            check(len(got) == len(want) == (len(merkle._widths(n)) if keep
+                                             else 1), what + ": levels")
+            for g, w in zip(got, want):
+                worst = max(worst, int((g.long() - w.long()).abs().max()))
+            check(worst == 0, what + " vs plain")
+            again = merkle.merkle_reduce(x, keep_levels=keep)
+            check(all(torch.equal(a, g) for a, g in zip(again, got)),
+                  what + ": two launches equal")
+            counters = merkle._workspace[(x.device.index,
+                                          native.stream_of(x))][0]
+            check(int(counters.count_nonzero()) == 0,
+                  what + ": counters zero after the launch")
+            n_cases += 1
+        if n <= 1 << 17:
+            check(merkle.merkle_roots_from_digests(d, device=dev)
+                  == [_hashlib_root(t) for t in d], f"merkle B={B} n={n} "
+                  "roots vs hashlib")
+        del x, got, want, again
+    # a proof from the kernel's kept levels against core.ledger's hashlib
+    n = 3 * (1 << 14) + 5
+    leaves = [rng.bytes(36) for _ in range(n)]
+    root = ledger.merkle_root(leaves, backend="hashlib")
+    check(merkle.merkle_root_device(leaves, device=dev) == root,
+          "merkle root of 36-byte leaves vs hashlib")
+    for i in (0, 1, n // 2, n - 2, n - 1):
+        proof = merkle.merkle_proof_device(leaves, i, device=dev)
+        check(proof == ledger.merkle_proof(leaves, i, backend="hashlib")
+              and ledger.verify_merkle_proof(leaves[i], proof, root),
+              f"merkle proof of leaf {i} of {n} vs hashlib")
+    return {"cases": n_cases + 1, "max_abs_err": worst,
+            "shapes": [f"B={B} n={n}" for B, n in cases],
+            "proof_leaves": n, "equal_to_hashlib": True,
+            "one_launch_a_reduction": True,
+            "equal_bits_launch_to_launch": True}
+
+
+def merkle_times(dev) -> dict:
+    """A reduction of the mining path's 2**20 leaf digests (one tree, down
+    to width 64) by events around 10 launches and replayed from a CUDA
+    graph; the plain version; the bound (the leaf digests read and the top
+    written once, as uint32; two compressions a parent, the second the
+    padding block's)."""
+    import numpy as np
+    from repro_torch.kernels import merkle
+    leaves = 1 << MAIN_BITS
+    d = np.random.RandomState(20271).randint(
+        0, 2**32, (1, leaves, 8), dtype=np.uint64).astype(np.uint32)
+    x = merkle._to_device(d, dev)
+    widths = merkle._widths(leaves)
+    parents = sum(widths)
+
+    def call():
+        merkle.merkle_reduce(x)
+    ms, dev_ms = cuda_ms(call), graph_ms(call)
+    plain_ms = cuda_ms(lambda: merkle._reduce_ref(x, False), reps=3,
+                       rounds=1)
+    bound, by, arith = hash_bound_ms(4 * 8 * (leaves + widths[-1]), parents,
+                                     pad_compressions=parents)
+    return {"shape": f"(1, {leaves}, 8) -> width {widths[-1]}, "
+                     f"{len(widths)} levels; ms per reduction",
+            "levels": len(widths), "ms": ms, "device_ms_from_graph": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "bound_arithmetic": arith,
+            "share_of_bound_from_graph": bound / dev_ms,
+            "nodes_per_s_from_graph": parents / (dev_ms * 1e-3)}
+
+
+def merkle_host_times(full) -> dict:
+    """Host clock, synchronised, of ``FullResult.commit_root()`` over the
+    mining path's 2**20 leaf digests, alone and split into its steps (the
+    numpy view, the copy to the card, the reduction, the copy back, the
+    hashlib top); and of ``recompute_roots_batched`` on the mining path's
+    segment (the full block), with its hashlib spot-check apart. Medians
+    of 5 (3 for the verify)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ledger import merkle_root
+    from repro_torch.core.verify import recompute_roots_batched
+    from repro_torch.kernels import merkle
+    dev = full.device
+    steps = ("prepare_s", "copy_to_card_s", "reduce_s", "copy_back_s",
+             "hashlib_top_s")
+
+    def split():
+        t = [time.perf_counter()]
+        host = torch.from_numpy(np.ascontiguousarray(
+            full.leaf_digests[None], dtype=np.uint32).view(np.int32))
+        t.append(time.perf_counter())
+        x = host.to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        top = merkle.merkle_reduce(x)[-1]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        top = merkle._to_host(top)[0]
+        t.append(time.perf_counter())
+        root = merkle._host_levels(merkle._words_to_digest_list(top))[-1][0]
+        t.append(time.perf_counter())
+        return root.hex(), [b - a for a, b in zip(t, t[1:])]
+
+    def clock(fn, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return out, statistics.median(times)
+
+    root, total = clock(full.commit_root, 5)
+    parts = [split() for _ in range(5)]
+    check(all(r == root for r, _ in parts), "commit_root's steps give its root")
+    roots, verify_s = clock(lambda: recompute_roots_batched([full],
+                                                            device=dev), 3)
+    check(roots == [root], "recompute_roots_batched gives the committed root")
+    leaves = list(full.merkle_leaves)
+    _, spot_s = clock(lambda: merkle_root(leaves, backend="hashlib"), 3)
+    return {"leaves": int(full.leaf_digests.shape[0]),
+            "commit_root_s": total,
+            "commit_root_split_s": {
+                k: statistics.median(p[i] for _, p in parts)
+                for i, k in enumerate(steps)},
+            "recompute_roots_batched_s": verify_s,
+            "of_it_hashlib_spot_check_s": spot_s}
 
 
 def _wkv_inputs(shape, dtype, gen, dev):
@@ -1088,7 +1273,7 @@ def main() -> int:
     from repro_torch.core import verify
     from repro_torch.core.jash import Jash, JashMeta, collatz_jash
     from repro_torch.core.ledger import merkle_root
-    from repro_torch.kernels import merkle, native, ref, sha256
+    from repro_torch.kernels import flash_attention, native, ref, sha256
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20260)
@@ -1158,40 +1343,8 @@ def main() -> int:
     sha_edge = sha_vs_hashlib(dev)
     emit({"phase": "sha256_vs_hashlib", **sha_edge})
 
-    def plain_reduce(rows):
-        while rows.shape[2] > merkle._CUTOVER:
-            rows = merkle._node_hash_ref(rows)
-        return rows
-
-    digests = words(1 << 22, 8)
-    rows = digests.T.reshape(8, 1, -1).contiguous()
-    top = merkle._reduce(rows, keep_levels=False)[-1]
-    err = int((top - plain_reduce(rows)).abs().max())
-    max_err["merkle"] = err
-    check(err == 0, "merkle kernel vs plain on 2**22 leaves")
-    d_np = digests.cpu().numpy().astype(np.uint32)
-    root_22 = merkle.merkle_root_from_digests(d_np, device=dev)
-
-    def hashlib_root(d):
-        level = [row.astype(">u4").tobytes() for row in d]
-        while len(level) > 1:
-            if len(level) % 2:
-                level.append(level[-1])
-            buf = b"".join(level)
-            level = [hashlib.sha256(buf[i:i + 64]).digest()
-                     for i in range(0, len(buf), 64)]
-        return level[0].hex()
-
-    check(merkle.merkle_root_from_digests(d_np[:1 << 16], device=dev)
-          == hashlib_root(d_np[:1 << 16]), "merkle 2**16 root vs hashlib")
-    forest = d_np[:4 << 16].reshape(4, 1 << 16, 8)
-    forest_rows = torch.from_numpy(np.ascontiguousarray(
-        forest.transpose(2, 0, 1)).astype(np.int64)).to(dev)
-    check(torch.equal(merkle._reduce(forest_rows, False)[-1],
-                      plain_reduce(forest_rows)),
-          "merkle forest kernel vs plain")
-    check(merkle.merkle_roots_from_digests(forest, device=dev)
-          == [hashlib_root(t) for t in forest], "merkle forest vs hashlib")
+    merkle_cases = merkle_vs_plain(dev)
+    emit({"phase": "merkle_vs_plain", **merkle_cases})
     flash = flash_vs_plain(dev)
     emit({"phase": "flash_vs_plain", **flash})
     flash_win = flash_window_vs_plain(dev)
@@ -1207,11 +1360,11 @@ def main() -> int:
         err for key, err in flash_err.items() if key.startswith("cuda_core"))
     max_err["flash_attention_tc"] = max(
         err for key, err in flash_err.items() if key.startswith("tensor_core"))
+    max_err["merkle"] = merkle_cases["max_abs_err"]
     max_err["decay_scan"] = decay["max_abs_err"]
     max_err["wkv6"] = wkv["max_abs_err"]
     emit({"phase": "kernels_vs_plain", "sha256": sha_rows,
-          "merkle": {"leaves": 1 << 22, "root": root_22, "equal": True,
-                     "hashlib_2_16": True, "forest": "4 x 2**16"},
+          "merkle": {"cases": merkle_cases["cases"], "equal": True},
           "flash_attention": {"cases": flash["cases"] + flash_win["cases"],
                               "within_tolerance": True,
                               "tolerance": FLASH_TOL,
@@ -1250,28 +1403,7 @@ def main() -> int:
     sha_times = [sha_case(1 << 16, 2, True, True),     # full-mode chunk
                  sha_case(1 << 20, 2, True, False),    # classic, hash 1
                  sha_case(1 << 20, 8, True, False)]    # classic, hash 2
-    leaves = 1 << MAIN_BITS
-    mrows = words(8, 1, leaves)
-    parents, width, levels = 0, leaves, 0
-    while width > merkle._CUTOVER:
-        width = (width + 1) // 2
-        parents += width
-        levels += 1
-    m_ms = cuda_ms(lambda: merkle._reduce(mrows, False))
-    m_plain = cuda_ms(lambda: plain_reduce(mrows), reps=3, rounds=1)
-    m_bound, m_by, m_arith = hash_bound_ms(
-        WORD_BYTES * 8 * (leaves + width), parents, pad_compressions=parents)
-    # ms and launches in one unit: a launch is one level, so each time is
-    # the reduction's over its levels
-    merkle_time = {"shape": f"(8, 1, {leaves}) -> width {width}, "
-                            f"{levels} levels; ms per level",
-                   "levels": levels, "ms": m_ms / levels,
-                   "plain_ms": m_plain / levels,
-                   "bound_ms": m_bound / levels, "bound_by": m_by,
-                   "reduction_ms": m_ms, "reduction_plain_ms": m_plain,
-                   "reduction_bound_ms": m_bound,
-                   "bound_arithmetic": m_arith,
-                   "nodes_per_s": parents / (m_ms * 1e-3)}
+    merkle_time = merkle_times(dev)
     flash_time = flash_times(dev)
     emit({"phase": "flash_times", "gpu": smi, **flash_time})
     core_f32 = flash_core_f32_times(dev)
@@ -1281,7 +1413,6 @@ def main() -> int:
     emit({"phase": "kernel_times", "gpu": smi, "sha256": sha_times,
           "merkle": merkle_time, "flash_attention": flash_time,
           "flash_cuda_core_float32": core_f32, **rec_times})
-    del digests, rows, top, forest_rows, mrows
     torch.cuda.empty_cache()
 
     # -- 3. the main path at full size -------------------------------------
@@ -1369,6 +1500,7 @@ def main() -> int:
         double, ">u4").astype("<u4").tobytes(), "classic best_res vs hashlib")
     emit({"phase": "main_path", "audit_chain_s": audit_s,
           "counts": counts, "checks": "passed"})
+    emit({"phase": "merkle_host", "gpu": smi, **merkle_host_times(f)})
 
     # -- 4. network ----------------------------------------------------------
     net = Network.create(2, classic_arg_bits=16, device="cuda")
@@ -1411,10 +1543,10 @@ def main() -> int:
 
     # -- 6. launch counts and the kernel table -------------------------------
     # the path's launches do not depend on the kernels' speed: 21 SHA-256
-    # calls, and two device reductions of 14 levels each
-    check(counts["sha256"] == 21 and counts["merkle"] == 28,
-          f"21 SHA-256 and 28 Merkle-level launches on the mining path: "
-          f"{counts}")
+    # calls, and two Merkle reductions (the commit and the verify), one
+    # launch each
+    check(counts["sha256"] == 21 and counts["merkle"] == 2,
+          f"21 SHA-256 and 2 Merkle launches on the mining path: {counts}")
     check(counts["hashlib_fallbacks"] == 0, "hashlib fallback never fired")
     check(all(counts[k] == 0 for k in ENTRY_OF),
           "no serving kernel launched on the mining path")
@@ -1450,11 +1582,11 @@ def main() -> int:
             counts["sha256"], {**chunk, "library_ms": None}, path="mining",
             device_ms_from_graph=chunk["device_ms_from_graph"],
             classic_shapes=sha_times[1:]),
-        row("merkle_level", "merkle", "merkle.cu", "merkle.py:132",
+        row("merkle_reduce", "merkle", "merkle.cu", "merkle.py:132",
             counts["merkle"], {**merkle_time, "library_ms": None},
-            path="mining", unit="ms per level; launches are levels "
-                              "(two 14-level reductions)",
-            reduction_ms=merkle_time["reduction_ms"]),
+            path="mining", unit="ms per reduction; launches are reductions "
+                                "(two a mining path, 14 levels each)",
+            device_ms_from_graph=merkle_time["device_ms_from_graph"]),
         row("flash_attention_tc", "flash_attention_tc",
             "flash_attention_tc.cu", "flash_attention.py:28",
             qwen["flash_attention_tc"] + rg["flash_attention_tc"],
@@ -1468,6 +1600,8 @@ def main() -> int:
             "flash_attention.py:28", sum(small_flash.values()),
             core_f32["qwen3-0.6b"],
             pnpcoin_demo_shape=core_f32["pnpcoin-demo"],
+            tile={f"hd={hd}": flash_attention.tile(hd)
+                  for hd in flash_attention.HEAD_DIMS},
             bf16_inputs_not_on_path={
                 "qwen3-0.6b": at(flash_time, "cuda_core"),
                 "recurrentgemma-2b": at(flash_rg, "cuda_core")},

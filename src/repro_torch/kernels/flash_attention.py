@@ -36,6 +36,21 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     return "cuda_core"
 
 
+def tile(head_dim: int) -> dict:
+    """The CUDA-core kernel's tile at ``head_dim`` (constants in its source)
+    and what the runtime reports for its float32 instance: query rows a
+    block, keys a tile, stages of its K and V rings, threads, dynamic shared
+    bytes, registers a thread and local (spilled) bytes."""
+    import ctypes
+    out = (ctypes.c_int32 * 7)()
+    native.check_launch("flash_attention tile",
+                        native.library().pnp_flash_attention_info(
+                            head_dim, out))
+    keys = ("block_rows", "block_keys", "stages", "threads", "shared_bytes",
+            "registers", "local_bytes")
+    return dict(zip(keys, out))
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, T, Kv, hd) on one CUDA card, contiguous,

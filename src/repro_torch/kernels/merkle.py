@@ -1,13 +1,15 @@
 """Bitcoin-style Merkle trees (odd levels duplicate their last node) with
 the wide levels reduced on the card.
 
-The leaf digests go to the device once, in the reference's words-major
-layout: 8 rows of width n, one row per digest word, or (8, B, n) for a
-forest of B same-width trees. Each level is one launch of the hand-written
-kernel in ``csrc/merkle.cu`` (one thread per parent). Levels reduce until
-the width is at most ``_CUTOVER``, and ``hashlib`` finishes the narrow top
-on the host, as ``repro/kernels/merkle.py`` does. Roots, levels and proofs
-are bit-identical to the reference and to ``core.ledger``'s hashlib tree.
+The leaf digests go to the device once, as they come: (N, 8) uint32 words
+a tree, or (B, N, 8) for a forest of B same-width trees, viewed as int32
+(no transpose, no widening). One launch of the hand-written kernel in
+``csrc/merkle.cu`` reduces every level of every tree until the width is at
+most ``_CUTOVER``, and ``hashlib`` finishes the narrow top on the host, as
+``repro/kernels/merkle.py`` does. Roots, levels and proofs are
+bit-identical to the reference and to ``core.ledger``'s hashlib tree. The
+layout (row-major, where the reference's is words-major) is internal to
+this module.
 
 Word convention: SHA-256 serializes words big-endian and digests are
 big-endian words, so a parent's message is its two children's 16 words.
@@ -17,13 +19,14 @@ that convention.
 from __future__ import annotations
 
 import hashlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import native
+from repro_torch.kernels.native import MASK32
 from repro_torch.kernels.ops import sha256_words
 from repro_torch.kernels.ref import _K, bswap32, sha256_words_ref
 
@@ -71,7 +74,7 @@ def _words_to_digest_list(level: np.ndarray) -> List[bytes]:
 
 
 # ---------------------------------------------------------------------------
-# one level: SHA-256 of each pair of children
+# the wide levels: SHA-256 of each pair of children, level after level
 # ---------------------------------------------------------------------------
 
 
@@ -95,68 +98,127 @@ _KW = tuple((int(k) + w) & 0xFFFFFFFF
             for k, w in zip(_K, _pad_block_schedule()))
 
 
-def _node_hash_ref(rows: torch.Tensor) -> torch.Tensor:
-    """Plain version of one level: (8, B, w) words -> (8, B, ceil(w/2)),
-    pairing within each tree and duplicating an odd level's last node."""
-    _, B, w = rows.shape
+def _node_hash_ref(level: torch.Tensor) -> torch.Tensor:
+    """Plain version of one level: (B, w, 8) int64 words -> (B, ceil(w/2),
+    8), pairing within each tree and duplicating an odd level's last node.
+    A parent's message is its two children's rows, one after the other."""
+    B, w, _ = level.shape
     if w % 2:
-        rows = torch.cat([rows, rows[:, :, -1:]], dim=2)
-    pairs = torch.cat([rows[:, :, 0::2], rows[:, :, 1::2]], dim=0)
-    msgs = pairs.reshape(16, -1).T                 # (B * w/2, 16)
-    return sha256_words_ref(msgs).T.reshape(8, B, -1)
+        level = torch.cat([level, level[:, -1:]], dim=1)
+    return sha256_words_ref(level.reshape(-1, 16)).reshape(B, -1, 8)
 
 
-def _merkle_level_cuda(rows: torch.Tensor) -> torch.Tensor:
-    global launches
-    native.check_cuda_words("merkle_level", rows, 3)
-    if rows.shape[0] != 8 or rows.shape[2] < 1:
-        raise ValueError(f"merkle_level: expected (8, B, w >= 1) words, "
-                         f"got {tuple(rows.shape)}")
-    _, B, w = rows.shape
-    r32 = native.to_i32(rows)
-    out = torch.empty((8, B, (w + 1) // 2), dtype=torch.int32,
-                      device=rows.device)
-    if B:
-        with torch.cuda.device(rows.device):
-            rc = native.library().pnp_merkle_level(
-                r32.data_ptr(), B, w, out.data_ptr(), native.stream_of(rows))
-        launches += 1
-        native.check_launch("merkle_level", rc)
-    return native.from_i32(out)
+def _widths(n: int) -> List[int]:
+    """Widths of the levels a reduction of ``n`` leaves computes: level l
+    is ceil(n / 2**l) wide, down to the first at most ``_CUTOVER``."""
+    widths, w = [], n
+    while w > _CUTOVER:
+        w = (w + 1) // 2
+        widths.append(w)
+    return widths
 
 
-def merkle_level(rows: torch.Tensor) -> torch.Tensor:
-    """One level of B trees: (8, B, w) words -> (8, B, ceil(w/2)). The CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if rows.is_cuda:
-        return _merkle_level_cuda(rows)
-    if rows.device.type != "cpu":
-        raise ValueError(f"merkle_level: unsupported device {rows.device}")
-    return _node_hash_ref(rows)
+def _i32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) -> int32 holding the same 32 bits."""
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
 
 
-def _reduce(rows: torch.Tensor, keep_levels: bool) -> List[torch.Tensor]:
-    """(8, B, w) words -> the levels down to width <= ``_CUTOVER``: every
-    level with ``keep_levels``, else only the last."""
+def _reduce_ref(digests: torch.Tensor, keep_levels: bool
+                ) -> List[torch.Tensor]:
+    """Plain version of ``merkle_reduce``, level by level."""
+    level = digests.to(torch.int64) & MASK32
     levels = []
-    while rows.shape[2] > _CUTOVER:
-        if keep_levels:
-            levels.append(rows)
-        rows = merkle_level(rows)
-    levels.append(rows)
+    while level.shape[1] > _CUTOVER:
+        level = _node_hash_ref(level)
+        levels.append(level)
+    return [_i32(lv) for lv in (levels if keep_levels else levels[-1:])]
+
+
+# The reduction kernel's workspace, one per card and stream: its tickets
+# (zero before a launch; every launch leaves them zero) and its scratch
+# nodes (the levels where its units meet), in two buffers.
+_workspace: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace_for(digests: torch.Tensor, B: int, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    lib = native.library()
+    need = [lib.pnp_merkle_workspace_words(B, n, _CUTOVER, c) for c in (1, 0)]
+    key = (digests.device.index, native.stream_of(digests))
+    have = _workspace.get(key)
+    if have is None or any(t.numel() < w for t, w in zip(have, need)):
+        old = have or (None, None)
+        have = tuple(t if t is not None and t.numel() >= w else
+                     torch.zeros(max(w, 1), dtype=torch.int32,
+                                 device=digests.device)
+                     for t, w in zip(old, need))
+        _workspace[key] = have
+    return have
+
+
+def _check_digests(name: str, digests: torch.Tensor) -> None:
+    if digests.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 words (uint32 bits), got "
+                        f"{digests.dtype}")
+    if digests.dim() != 3 or digests.shape[2] != 8:
+        raise ValueError(f"{name}: expected (B, n, 8) digest words, got "
+                         f"{tuple(digests.shape)}")
+    if not digests.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _merkle_reduce_cuda(digests: torch.Tensor, keep_levels: bool
+                        ) -> List[torch.Tensor]:
+    global launches
+    _check_digests("merkle_reduce", digests)
+    B, n, _ = digests.shape
+    widths = _widths(n)
+    if not widths:
+        return []
+    sizes = [B * w * 8 for w in (widths if keep_levels else widths[-1:])]
+    out = torch.empty(sum(sizes), dtype=torch.int32, device=digests.device)
+    levels = [lv.view(B, -1, 8) for lv in out.split(sizes)]
+    if not B:
+        return levels
+    # the host's time counts here: the C entry makes the card current
+    # itself, with no device context here
+    counters, nodes = _workspace_for(digests, B, n)
+    rc = native.library().pnp_merkle_reduce(
+        digests.data_ptr(), B, n, _CUTOVER, int(keep_levels), out.data_ptr(),
+        counters.data_ptr(), nodes.data_ptr(), digests.device.index,
+        native.stream_of(digests))
+    native.check_launch("merkle_reduce", rc)
+    launches += 1
     return levels
 
 
-def _to_rows(digests: np.ndarray, device: torch.device) -> torch.Tensor:
-    """(B, N, 8) uint32 words -> (8, B, N) int64 words on ``device``."""
-    d = np.ascontiguousarray(np.asarray(digests, np.uint32)
-                             .transpose(2, 0, 1)).astype(np.int64)
-    return torch.from_numpy(d).to(device)
+def merkle_reduce(digests: torch.Tensor, *, keep_levels: bool = False
+                  ) -> List[torch.Tensor]:
+    """The wide levels of B same-width trees: (B, n, 8) int32 words
+    (uint32 bits, one leaf digest a row) -> the levels down to the first at
+    most ``_CUTOVER`` wide, each (B, w, 8) int32: every level after the
+    leaves with ``keep_levels``, else only that last one; none where n <=
+    ``_CUTOVER``. One launch of the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if digests.is_cuda:
+        return _merkle_reduce_cuda(digests, keep_levels)
+    if digests.device.type != "cpu":
+        raise ValueError(f"merkle_reduce: unsupported device "
+                         f"{digests.device}")
+    _check_digests("merkle_reduce", digests)
+    return _reduce_ref(digests, keep_levels)
 
 
-def _to_host(rows: torch.Tensor) -> np.ndarray:
-    """(8, B, w) words -> (B, w, 8) uint32."""
-    return rows.permute(1, 2, 0).cpu().numpy().astype(np.uint32)
+def _to_device(digests: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(B, N, 8) uint32 words -> the same bits as int32 on ``device``."""
+    d = np.ascontiguousarray(digests, dtype=np.uint32)
+    return torch.from_numpy(d.view(np.int32)).to(device)
+
+
+def _to_host(level: torch.Tensor) -> np.ndarray:
+    """(B, w, 8) int32 words -> (B, w, 8) uint32."""
+    return level.cpu().numpy().view(np.uint32)
 
 
 # ---------------------------------------------------------------------------
@@ -187,8 +249,11 @@ def _hybrid_levels(digests: np.ndarray, *, keep_levels: bool = True,
         return [], hashlib.sha256(b"").hexdigest()
     device_levels: List[np.ndarray] = []
     if n > _CUTOVER:
-        out = [_to_host(lv)[0] for lv in
-               _reduce(_to_rows(digests[None], resolve(device)), keep_levels)]
+        out = [_to_host(lv)[0] for lv in merkle_reduce(
+            _to_device(digests[None], resolve(device)),
+            keep_levels=keep_levels)]
+        if keep_levels:
+            out.insert(0, np.asarray(digests, np.uint32))
         # proofs index odd levels with their last node duplicated
         device_levels = [np.concatenate([lv, lv[-1:]]) if len(lv) % 2 else lv
                          for lv in out[:-1]]
@@ -238,7 +303,7 @@ def merkle_roots_from_digests(digests: np.ndarray, *,
     if n == 0:
         return [hashlib.sha256(b"").hexdigest()] * B
     if n > _CUTOVER:
-        d = _to_host(_reduce(_to_rows(d, resolve(device)), False)[-1])
+        d = _to_host(merkle_reduce(_to_device(d, resolve(device)))[-1])
     return [_host_levels(_words_to_digest_list(d[b]))[-1][0].hex()
             for b in range(B)]
 

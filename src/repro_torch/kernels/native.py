@@ -9,9 +9,8 @@ CPU tests import every module on a machine with no ``nvcc``.
 
 The port keeps 32-bit words in int64 tensors masked to 32 bits. The SHA-256
 kernel reads and writes those int64 words itself (the low 32 bits of each);
-the Merkle kernel takes int32 buffers (read as ``uint32_t`` in C), and
-``to_i32`` and ``from_i32`` convert explicitly at that boundary, so words at
-or above 2**31 keep their bits.
+the Merkle kernel takes the numpy uint32 digests as int32 buffers of the
+same bits (read as ``uint32_t`` in C).
 """
 from __future__ import annotations
 
@@ -34,17 +33,6 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               *ARCH]
-
-
-def to_i32(words: torch.Tensor) -> torch.Tensor:
-    """int64 words in [0, 2**32) -> int32 tensor holding the same 32 bits."""
-    return torch.where(words >= 1 << 31, words - (1 << 32),
-                       words).to(torch.int32)
-
-
-def from_i32(x: torch.Tensor) -> torch.Tensor:
-    """int32 tensor read as uint32 -> int64 words in [0, 2**32)."""
-    return x.to(torch.int64) & MASK32
 
 
 def _nvcc() -> str:
@@ -116,11 +104,16 @@ def library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.pnp_sha256_rows.argtypes = [vp, i64, i32, vp, vp, i32, vp]
     lib.pnp_sha256_rows.restype = ctypes.c_int
-    lib.pnp_merkle_level.argtypes = [vp, i64, i64, vp, vp]
-    lib.pnp_merkle_level.restype = ctypes.c_int
+    lib.pnp_merkle_reduce.argtypes = [vp, i64, i64, i64, i32, vp, vp, vp,
+                                      i32, vp]
+    lib.pnp_merkle_reduce.restype = ctypes.c_int
+    lib.pnp_merkle_workspace_words.argtypes = [i64, i64, i64, i32]
+    lib.pnp_merkle_workspace_words.restype = ctypes.c_int64
     lib.pnp_flash_attention_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,
                                             i32, i32, i32, i32, i32, i32, vp]
     lib.pnp_flash_attention_fwd.restype = ctypes.c_int
+    lib.pnp_flash_attention_info.argtypes = [i32, vp]
+    lib.pnp_flash_attention_info.restype = ctypes.c_int
     lib.pnp_flash_attention_tc_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,
                                                i32, i32, i32, i32, i32, vp]
     lib.pnp_flash_attention_tc_fwd.restype = ctypes.c_int

@@ -123,15 +123,60 @@ def test_sha256_call_is_one_kernel(card):
                                      for k in kernels), kernels
 
 
-@pytest.mark.parametrize("B,w", [(1, 1), (1, 2), (1, 65), (1, 4097),
-                                 (3, 300)])
-def test_merkle_kernel_matches_plain_version(card, B, w):
-    rows = _words((8, B, w), B * w)
+def _digests(shape, seed):
+    return _words(shape, seed).to(torch.int32)   # uint32 bits as int32
+
+
+# (B, n): no level (n <= 64), one level, odd widths, one unit of 1,024
+# nodes and the next, and reductions whose units meet (n > 64 x 1,024)
+# with ragged tails, forests of 2-4 trees
+MERKLE_CASES = [(1, 1), (1, 2), (1, 65), (1, 4097), (3, 300), (1, 1024),
+                (1, 1025), (2, 2049), (1, (1 << 16) + 1), (4, 1 << 16),
+                (3, 3 * (1 << 14) + 5), (2, (1 << 17) + 3)]
+
+
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("B,n", MERKLE_CASES)
+def test_merkle_kernel_matches_plain_version(card, B, n, keep):
+    d = _digests((B, n, 8), B * n)
     before = merkle.launches
-    got = merkle.merkle_level(rows.to(card))
+    got = merkle.merkle_reduce(d.to(card), keep_levels=keep)
     torch.cuda.synchronize()
-    assert merkle.launches == before + 1
-    assert torch.equal(got.cpu(), merkle._node_hash_ref(rows))
+    # one launch a reduction, none where there is nothing to reduce
+    assert merkle.launches == before + (n > merkle._CUTOVER)
+    want = merkle._reduce_ref(d.to(card), keep)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # no atomics in the sums: a second launch gives the same bits
+    again = merkle.merkle_reduce(d.to(card), keep_levels=keep)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_merkle_workspace_counters_end_zero(card):
+    B, n = 2, (1 << 17) + 3
+    d = _digests((B, n, 8), 3).to(card)
+    for keep in (False, True):
+        merkle.merkle_reduce(d, keep_levels=keep)
+        torch.cuda.synchronize()
+        counters, _ = merkle._workspace[(d.device.index,
+                                         native.stream_of(d))]
+        assert native.library().pnp_merkle_workspace_words(B, n, 64, 1) > 0
+        assert int(counters.count_nonzero()) == 0
+
+
+def test_merkle_reductions_share_the_workspace_in_any_order(card):
+    # a reduction with few tickets and many scratch nodes, then one with
+    # more tickets: the second must find its tickets zero
+    small = _digests((1, 1 << 20, 8), 5).to(card)
+    large = _digests((8, 1 << 18, 8), 6).to(card)
+    lib = native.library()
+    assert lib.pnp_merkle_workspace_words(8, 1 << 18, 64, 1) > \
+        lib.pnp_merkle_workspace_words(1, 1 << 20, 64, 1)
+    for d in (small, large, small):
+        got = merkle.merkle_reduce(d)
+        torch.cuda.synchronize()
+        assert torch.equal(got[-1], merkle._reduce_ref(d, False)[-1])
 
 
 def test_wrappers_refuse_bad_input(card):
@@ -141,9 +186,15 @@ def test_wrappers_refuse_bad_input(card):
     with pytest.raises(ValueError, match="contiguous"):
         sha256.sha256_rows_cuda(torch.zeros((4, 4), dtype=torch.int64,
                                             device=card)[:, ::2])
-    with pytest.raises(ValueError, match=r"\(8, B, w"):
-        merkle.merkle_level(torch.zeros((7, 1, 4), dtype=torch.int64,
-                                        device=card))
+    with pytest.raises(ValueError, match=r"\(B, n, 8\)"):
+        merkle.merkle_reduce(torch.zeros((1, 100, 7), dtype=torch.int32,
+                                         device=card))
+    with pytest.raises(TypeError, match="int32"):
+        merkle.merkle_reduce(torch.zeros((1, 100, 8), dtype=torch.int64,
+                                         device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        merkle.merkle_reduce(torch.zeros((1, 100, 16), dtype=torch.int32,
+                                         device=card)[..., ::2])
 
 
 # chip_smoke.py's flash_vs_plain cases: (hd, G, causal, S, T)
@@ -187,6 +238,42 @@ def test_flash_kernel_matches_plain_version(card, dtype, hd, g, causal, s, t):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     # one block owns each row and sums in a fixed order: run to run equal
     assert torch.equal(ops.flash_attention(q, k, v, causal=causal), got)
+
+
+@pytest.mark.parametrize("edge", ["rows+1", "rows-1", "keys-1", "keys+1",
+                                  "2keys+1"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_cuda_core_kernel_tile_edges(card, hd, causal, edge):
+    # S and T one off the CUDA-core kernel's block of query rows and its
+    # tile of keys, float32 (its path), GQA 2
+    tile = flash_attention.tile(hd)
+    bq, bk = tile["block_rows"], tile["block_keys"]
+    s, t = {"rows+1": (bq + 1, bq + 1), "rows-1": (bq - 1, bq + 3),
+            "keys-1": (bq + 1, bk - 1), "keys+1": (bk + 1, bk + 1),
+            "2keys+1": (2 * bq + 5, 2 * bk + 1)}[edge]
+    if causal:
+        t = s
+    q, k, v = _qkv(hd, 2, s, t, torch.float32, card, hd + s + t, b=2)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention_cuda_core(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.equal(flash_attention.flash_attention_cuda_core(
+        q, k, v, causal=causal), got)
+
+
+def test_flash_cuda_core_tile_fits_and_spills_nothing(card):
+    for hd in flash_attention.HEAD_DIMS:
+        tile = flash_attention.tile(hd)
+        assert tile["shared_bytes"] <= 227 * 1024
+        assert tile["block_rows"] % 16 == 0 and tile["block_keys"] % 8 == 0
+        assert tile["registers"] <= 255
+        if hd <= 128:
+            assert tile["local_bytes"] == 0, tile
 
 
 def test_flash_kernel_online_softmax_stability(card):

@@ -79,15 +79,6 @@ def test_known_vector_four_zero_bytes():
     np.testing.assert_array_equal(_np(got)[0], want)
 
 
-def test_int32_boundary_keeps_high_words():
-    words = torch.tensor([0, 1, 2**31 - 1, 2**31, 0xDEADBEEF, 2**32 - 1],
-                         dtype=torch.int64)
-    i32 = native.to_i32(words)
-    assert i32.dtype == torch.int32
-    assert i32.tolist() == [0, 1, 2**31 - 1, -2**31, 0xDEADBEEF - 2**32, -1]
-    assert native.from_i32(i32).tolist() == words.tolist()
-
-
 def test_cuda_constants_match_the_reference_table():
     text = (CSRC / "sha256_common.cuh").read_text()
     table = text[text.index("kSha256K[64]"):text.index("};")]

@@ -13,6 +13,7 @@ import random
 import re
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -107,14 +108,94 @@ def test_kw_table_matches_reference_and_kernel_source():
 
 def test_odd_level_plain_version_duplicates_last_node():
     rng = np.random.RandomState(5)
-    rows = torch.from_numpy(
-        rng.randint(0, 2**32, (8, 2, 5), dtype=np.uint64).astype(np.int64))
-    out = merkle.merkle_level(rows)
-    assert out.shape == (8, 2, 3)
+    level = torch.from_numpy(
+        rng.randint(0, 2**32, (2, 5, 8), dtype=np.uint64).astype(np.int64))
+    out = merkle._node_hash_ref(level)
+    assert out.shape == (2, 3, 8)
     for b in range(2):
-        last = rows[:, b, 4].numpy().astype(">u4").tobytes()
+        last = level[b, 4].numpy().astype(">u4").tobytes()
         want = hashlib.sha256(last + last).digest()
-        assert merkle.words_to_hex(out[:, b, 2].numpy()) == want.hex()
+        assert merkle.words_to_hex(out[b, 2].numpy()) == want.hex()
+
+
+def _digests(shape, seed):
+    rng = np.random.RandomState(seed)
+    d = rng.randint(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    d.flat[0], d.flat[-1] = 2**32 - 1, 2**31     # words at and above 2**31
+    return d
+
+
+def _hashlib_levels(tree):
+    """Every level after the leaves of one tree, by hashlib, down to the
+    first at most ``_CUTOVER`` wide, as (w, 8) uint32."""
+    level, out = [row.astype(">u4").tobytes() for row in tree], []
+    while len(level) > merkle._CUTOVER:
+        if len(level) % 2:
+            level.append(level[-1])
+        level = [hashlib.sha256(level[i] + level[i + 1]).digest()
+                 for i in range(0, len(level), 2)]
+        out.append(merkle.pack_digests(level))
+    return out
+
+
+@pytest.mark.parametrize("B,w", [(1, 2), (3, 5), (2, 64)])
+def test_row_major_level_matches_reference_node_hash(B, w):
+    # the reference's words-major _node_hash, run eagerly on the pairs
+    # (its device tree compiles too slowly on a CPU above 64 leaves)
+    d = _digests((B, w, 8), B * 100 + w)
+    got = merkle._node_hash_ref(torch.from_numpy(d.astype(np.int64)))
+    padded = np.concatenate([d, d[:, -1:]], axis=1) if w % 2 else d
+    pairs = padded.reshape(B, -1, 16)
+    want = jmerkle._node_hash([jnp.asarray(pairs[..., i].reshape(-1))
+                               for i in range(16)])
+    want = np.stack([np.asarray(x) for x in want], -1).reshape(B, -1, 8)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("B,n", [(1, 65), (3, 127), (4, 129), (1, 4097),
+                                 (3, 200), (2, 64), (4, 1)])
+@pytest.mark.parametrize("keep", [False, True])
+def test_plain_reduction_matches_hashlib(B, n, keep):
+    # odd widths, forests of 1, 3 and 4 trees, and trees that need no
+    # reduction (n <= 64: no level, so nothing would launch on a card)
+    d = _digests((B, n, 8), B * 7919 + n)
+    got = merkle.merkle_reduce(torch.from_numpy(d.view(np.int32)),
+                               keep_levels=keep)
+    want = [_hashlib_levels(d[b]) for b in range(B)]
+    widths = merkle._widths(n)
+    assert [lv.shape for lv in got] == [
+        (B, w, 8) for w in (widths if keep else widths[-1:])]
+    for b in range(B):
+        levels = want[b] if keep else want[b][-1:]
+        for lv, exp in zip(got, levels):
+            assert lv.dtype == torch.int32
+            np.testing.assert_array_equal(lv[b].numpy().view(np.uint32), exp)
+
+
+@pytest.mark.parametrize("n", [65, 127, 129, 4097])
+def test_levels_and_proofs_of_odd_widths_match_hashlib(n):
+    leaves = _leaves(n, "uniform", seed=11)
+    levels = merkle.merkle_levels_device(leaves, device="cpu")
+    assert len(levels[0]) == n + n % 2
+    np.testing.assert_array_equal(
+        levels[1][:(n + 1) // 2],
+        merkle.pack_digests([hashlib.sha256(levels[0][i].astype(">u4")
+                                            .tobytes() +
+                                            levels[0][i + 1].astype(">u4")
+                                            .tobytes()).digest()
+                             for i in range(0, n + n % 2, 2)]))
+    root = jledger.merkle_root(leaves, backend="hashlib")
+    for i in sorted({0, n // 3, n - 2, n - 1}):
+        proof = merkle.merkle_proof_device(leaves, i, device="cpu")
+        assert proof == jledger.merkle_proof(leaves, i)
+        assert ledger.verify_merkle_proof(leaves[i], proof, root)
+
+
+def test_reduce_refuses_bad_input():
+    with pytest.raises(TypeError, match="int32"):
+        merkle.merkle_reduce(torch.zeros((1, 70, 8), dtype=torch.int64))
+    with pytest.raises(ValueError, match=r"\(B, n, 8\)"):
+        merkle.merkle_reduce(torch.zeros((70, 8), dtype=torch.int32))
 
 
 def test_packing_helpers_match_reference():
