@@ -43,7 +43,12 @@ Prints one JSON line per probe, each with the card's name and power limit
      ``commit_root()`` split into its steps, and of
      ``recompute_roots_batched`` on it. ``--src DIR`` imports
      ``repro_torch`` from DIR/src instead (another tree of this repo, so
-     two trees can be compared in turns in one run).
+     two trees can be compared in turns in one run);
+ 12. profiler_count: whether ``torch.profiler`` records all three SHA-256
+     kernels of three calls, over 200 sessions launching as soon as the
+     session starts and stopping as soon as the card has synchronised,
+     and 200 with quiet time at both ends, in turns (the count of
+     ``tests/test_torch_cuda.py::test_sha256_call_is_one_kernel``).
 The tile, unit and block sweeps build their variants of the port's sources
 with -D flags into their own libraries; the port's library keeps its one
 tile, unit and block.
@@ -465,12 +470,56 @@ def main() -> int:
         probe_merkle_units(gpu)
     if want("merkle_host"):
         probe_merkle_host(gpu)
+    if want("profiler_count"):
+        probe_profiler_count(gpu)
     return 0
 
 
 PROBES = ("shared_loads", "fp32_issue", "wkv6_step_loop", "wkv6_per_step",
           "int_issue", "memory_in_flight", "decay_scan_tiles",
-          "sha256_blocks", "flash_tiles", "merkle_units", "merkle_host")
+          "sha256_blocks", "flash_tiles", "merkle_units", "merkle_host",
+          "profiler_count")
+
+
+def probe_profiler_count(gpu: str) -> None:
+    """Three SHA-256 calls traced by ``torch.profiler`` in 200 sessions of
+    each of two windows, in turns: "tight" launches as soon as the session
+    starts and stops as soon as the card has synchronised; "quiet" sleeps
+    ``QUIET_S`` at both ends. A session is ok if it records exactly the
+    three SHA-256 kernels."""
+    import time
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import sha256
+    msg = torch.randint(0, 2**32, (1 << 16, 2), dtype=torch.int64,
+                        device="cuda")
+    sha256.sha256_rows_cuda(msg, raw=True, bswap=True)
+    torch.cuda.synchronize()
+    res = {w: {"sessions": 0, "ok": 0, "kernels_when_not": []}
+           for w in ("tight", "quiet")}
+    for _ in range(200):
+        for window, quiet in (("tight", 0.0), ("quiet", QUIET_S)):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(quiet)
+                for _ in range(3):
+                    sha256.sha256_rows_cuda(msg, raw=True, bswap=True)
+                torch.cuda.synchronize()
+                time.sleep(quiet)
+            names = [e.name for e in prof.events()
+                     if e.device_type.name == "CUDA"]
+            r = res[window]
+            r["sessions"] += 1
+            if len(names) == 3 and all("sha256_rows_kernel" in n
+                                       for n in names):
+                r["ok"] += 1
+            else:
+                r["kernels_when_not"].append(len(names))
+    emit({"probe": "profiler_count", "gpu": gpu, "quiet_s": QUIET_S, **res})
+
+
+# the quiet time at each end of a profiled window that the card test and
+# chip_smoke.py use
+QUIET_S = 0.02
 
 
 INT_OPS = {0: "LOP3", 1: "SHF", 2: "IADD3", 3: "IMAD", 4: "LOP3 + IMAD",

@@ -38,7 +38,20 @@ On one CUDA card it:
      full block's Merkle commit (split into its steps) and of its batched
      root re-check;
   4. runs a 2-node ``Network`` to convergence;
-  5. serves three models at full width and depth through
+  5. drives the workload families and the journal through ``Node``, each
+     part with its launch counts checked: SAT at the size of SATLIB's
+     uf20-91 (20 variables, 91 clauses, 2**20 assignments a block; 8
+     blocks, certificates and refutations, each block's table against
+     numpy, each certificate the lowest satisfying assignment, each
+     refutation's root against hashlib), docking at 1,024 x 1,024 pairs
+     (two blocks, the second verified through the batched verify's
+     dedup; 4,096 pairs against a Python loop, the root against
+     hashlib), and a journal on disk of a collatz full, a SAT, a docking
+     and a Classic block over 2**20 args, recovered whole and, torn by
+     100 bytes, recovered to height 3 and resynced from the first node;
+     then ``examples/torch_quickstart.py`` on the card and on the CPU,
+     which must print the same blocks and tip;
+  6. serves three models at full width and depth through
      ``repro_torch.launch.serve`` (batch 8, 32 new tokens, bf16, random
      weights from a fixed seed): qwen3-0.6b (prompt 2048; flash attention),
      rwkv6-7b (prompt 2048; WKV-6 in prefill and decode) and
@@ -48,7 +61,7 @@ On one CUDA card it:
      of each kernel must equal the plain version on the same inputs, and a
      reduced float32 model served on the card (its attention on the
      CUDA-core kernel, launches counted) and on the CPU must agree;
-  6. counts with torch.profiler the CUDA kernels a SHA-256 call runs (one;
+  7. counts with torch.profiler the CUDA kernels a SHA-256 call runs (one;
      last, since a traced process launches more slowly afterwards), checks
      each kernel's launch count from its own path (21 SHA-256 and 2
      Merkle launches, one a reduction, a mining path) and that the
@@ -59,6 +72,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import statistics
@@ -132,6 +146,8 @@ DECAY_STEPS, DECAY_CHANNELS, SHA_BLOCK_ROWS = 128, 64, 64
 DECAY_TOL, WKV_TOL = 1e-5, 1e-4
 
 MAIN_BITS = 20
+# seconds of quiet at each end of a profiled window
+PROFILER_QUIET_S = 0.02
 
 
 def emit(obj) -> None:
@@ -700,10 +716,15 @@ def sha_kernels_a_call(dev) -> dict:
                           dtype=torch.int64)
     sha256.sha256_rows_cuda(chunk, raw=True, bswap=True)
     torch.cuda.synchronize()
+    # the profiler drops a kernel whose timestamp lands just outside its
+    # window (chip_probes.py profiler_count counts how often): quiet time at
+    # both ends keeps the five kernels inside
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_QUIET_S)
         for _ in range(5):
             sha256.sha256_rows_cuda(chunk, raw=True, bswap=True)
         torch.cuda.synchronize()
+        time.sleep(PROFILER_QUIET_S)
     kernels = [e.name for e in prof.events()
                if e.device_type.name == "CUDA"]
     check(len(kernels) == 5
@@ -1052,6 +1073,369 @@ def recurrent_times(dev) -> dict:
 SERVE_KERNELS = {"flash_attention": None, "wkv6": 5, "decay_scan": 2}
 # each kernel's launch counter and the ``kernels.ops`` entry that reaches it
 # (``ops.flash_attention`` reaches both flash kernels, by dtype and head dim)
+def _counts() -> dict:
+    """The hash kernels' launch counts and the verifier's hashlib
+    fallbacks since the last ``_zero_counts``."""
+    from repro_torch.core import verify
+    counts = {name: mod.launches for name, mod in _launch_counters().items()}
+    counts["hashlib_fallbacks"] = verify.hashlib_fallbacks
+    return counts
+
+
+def _zero_counts() -> None:
+    from repro_torch.core import verify
+    for mod in _launch_counters().values():
+        mod.launches = 0
+    verify.hashlib_fallbacks = 0
+
+
+def _check_counts(counts: dict, sha: int, merkle: int, what: str) -> None:
+    check(counts["sha256"] == sha and counts["merkle"] == merkle,
+          f"{what}: {sha} SHA-256 and {merkle} Merkle launches, got {counts}")
+    check(counts["hashlib_fallbacks"] == 0,
+          f"{what}: hashlib fallback never fired")
+    check(all(counts[k] == 0 for k in ENTRY_OF),
+          f"{what}: no serving kernel launched")
+
+
+def _timed_steps(wl, into: list) -> None:
+    """Wrap a workload's mine/verify/reward so each call appends its host
+    seconds (the card synchronised) to ``into`` as (step, seconds)."""
+    import torch
+    for step in ("mine", "verify", "reward"):
+        def timed(*args, _orig=getattr(wl, step), _step=step):
+            t = time.perf_counter()
+            out = _orig(*args)
+            torch.cuda.synchronize()
+            into.append((_step, time.perf_counter() - t))
+            return out
+        setattr(wl, step, timed)
+
+
+def _unsat_table(cnf, n: int):
+    """Unsatisfied clauses for every assignment in [0, n), by numpy on the
+    host in slices of 2**16."""
+    import numpy as np
+    out = np.empty(n, np.int64)
+    shifts = np.arange(cnf.n_vars)
+    for s in range(0, n, 1 << 16):
+        a = np.arange(s, min(n, s + (1 << 16)), dtype=np.int64)
+        bits = ((a[:, None] >> shifts) & 1).astype(np.bool_)
+        lits = bits[:, cnf.cl_vars] ^ cnf.cl_neg
+        out[s:s + len(a)] = (~lits.any(axis=2)).sum(axis=1)
+    return out
+
+
+# the per-chunk SHA-256 launches of a full-mode block over 2**20 args
+CHUNKS = (1 << MAIN_BITS) // (1 << 16)
+# SATLIB's uniform random 3-SAT set uf20-91: 20 variables, 91 clauses
+SAT_VARS, SAT_CLAUSES, SAT_BLOCKS = 20, 91, 8
+# the paper's §4 docking walkthrough at 2**20 pairs
+DOCK_R, DOCK_P, DOCK_STEPS = 1024, 1024, 64
+
+
+def sat_path(dev) -> dict:
+    """SAT at uf20-91's size through ``Node``: 8 blocks of 2**20
+    assignments each, every block's table against numpy, each certificate
+    the lowest satisfying assignment, each refutation's root against
+    hashlib, then the node's batched audit. Launches: 16 SHA-256 and one
+    Merkle reduction a block's mining (its self-verify runs none: a
+    certificate is checked on the host, a refutation by hashlib and the
+    quorum); the audit's batched verify one SHA-256 launch and one forest
+    reduction for all refutations (one shape group), none for
+    certificates."""
+    import numpy as np
+    import torch
+    from repro_torch.chain import Node
+    from repro_torch.chain.workloads import SatWorkload
+    from repro_torch.core.ledger import merkle_root
+    wl = SatWorkload(n_vars=SAT_VARS, n_clauses=SAT_CLAUSES, seed=0,
+                     device=dev)
+    steps = []
+    _timed_steps(wl, steps)
+    node = Node(device=dev, workloads={"sat": wl})
+    _zero_counts()
+    receipts = [node.mine_block("sat") for _ in range(SAT_BLOCKS)]
+    torch.cuda.synchronize()
+    mined = _counts()
+    t = time.perf_counter()
+    check(node.audit_chain(), "sat: the node audits its chain")
+    audit_s = time.perf_counter() - t
+    audited = _counts()
+    kinds = ["certificate" if r.payload.certificate is not None
+             else "refutation" for r in receipts]
+    check("certificate" in kinds and "refutation" in kinds,
+          f"sat: both a certificate and a refutation block in "
+          f"{SAT_BLOCKS} blocks: {kinds}")
+    n = 1 << SAT_VARS
+    for k, r in enumerate(receipts):
+        p, cnf = r.payload, wl.instance(k)[0]
+        table = _unsat_table(cnf, n)
+        check(np.array_equal(p.full.results[:, 0], table),
+              f"sat block {k}: table vs numpy")
+        if p.certificate is not None:
+            witness = int(np.frombuffer(p.certificate, "<u4")[0])
+            check(cnf.unsat_count(witness) == 0
+                  and witness == int(np.argmax(table == 0)),
+                  f"sat block {k}: certificate is the lowest satisfying "
+                  "assignment")
+        else:
+            check(not (table == 0).any() and p.merkle_root == merkle_root(
+                list(p.full.merkle_leaves), backend="hashlib"),
+                f"sat block {k}: refutation root vs hashlib")
+    n_refute = kinds.count("refutation")
+    _check_counts(mined, CHUNKS * SAT_BLOCKS, SAT_BLOCKS, "sat mining")
+    batched = int(n_refute > 0)
+    _check_counts(audited, CHUNKS * SAT_BLOCKS + batched,
+                  SAT_BLOCKS + batched, "sat mining and audit")
+    return {"phase": "workloads", "part": "sat",
+            "config": f"uf20-91 size: {SAT_VARS} variables, {SAT_CLAUSES} "
+                      f"clauses, 2**{SAT_VARS} assignments a block",
+            "blocks": kinds, "roots": [r.record.merkle_root for r in
+                                       receipts],
+            "mine_s": [s for k, s in steps if k == "mine"],
+            "verify_s": [s for k, s in steps if k == "verify"],
+            "reward_s": [s for k, s in steps if k == "reward"],
+            "block_time_s": [r.block_time_s for r in receipts],
+            "audit_chain_s": audit_s,
+            "counts_mining": mined, "counts_with_audit": audited,
+            "launches": {"sha256": audited["sha256"],
+                         "merkle": audited["merkle"]}}
+
+
+def _dock_matcher(r: int, p: int) -> int:
+    """The docking matcher for one pair, in Python."""
+    e = ((r ^ p) * 2654435761 & 0xFFFFFFFF) >> 16
+    t, done = 0, False
+    for _ in range(DOCK_STEPS):
+        if not done and e > 100:
+            e, t = e - (e >> 3) - 1, t + 1
+        done = done or e <= 100
+    return 0b10 if not done else (0b01 if t < 24 else 0b00)
+
+
+def docking_path(dev) -> dict:
+    """Docking at 1,024 receptors x 1,024 peptides through ``Node``: two
+    blocks of 2**20 pairs, 4,096 sampled pairs against a Python loop of
+    the matcher and the root against hashlib; the node's batched audit
+    verifies the second block through ``verify_batch``'s dedup. Launches:
+    16 SHA-256 and one Merkle reduction a block's mining; the audit one
+    SHA-256 launch and one reduction for both (one representative)."""
+    import numpy as np
+    import torch
+    from repro_torch.chain import Node
+    from repro_torch.chain.workloads import DockingWorkload
+    from repro_torch.core.ledger import merkle_root
+    wl = DockingWorkload(n_r=DOCK_R, n_p=DOCK_P, seed=0,
+                         max_steps=DOCK_STEPS, device=dev)
+    steps = []
+    _timed_steps(wl, steps)
+    node = Node(device=dev, workloads={"docking": wl})
+    _zero_counts()
+    receipts = [node.mine_block("docking") for _ in range(2)]
+    torch.cuda.synchronize()
+    mined = _counts()
+    t = time.perf_counter()
+    check(node.audit_chain(), "docking: the node audits its chain")
+    audit_s = time.perf_counter() - t
+    audited = _counts()
+    first, second = (r.payload for r in receipts)
+    check(first.n_results == DOCK_R * DOCK_P and second.merkle_root
+          == first.merkle_root and np.array_equal(
+              first.full.packed_words(), second.full.packed_words()),
+          "docking: two screenings of one bundle are byte-identical")
+    _check_counts(mined, 2 * CHUNKS, 2, "docking mining")
+    _check_counts(audited, 2 * CHUNKS + 1, 3,
+                  "docking mining and audit (the second block deduped)")
+    idx = np.random.RandomState(20272).choice(DOCK_R * DOCK_P, 4096,
+                                              replace=False)
+    rec, pep = wl.bundle.receptors, wl.bundle.peptides
+    check(all(int(first.full.results[b, 0]) == _dock_matcher(
+        int(rec[b % DOCK_R]), int(pep[b // DOCK_R])) for b in idx),
+        "docking: 4,096 sampled pairs vs a Python loop of the matcher")
+    check(first.merkle_root == merkle_root(list(first.full.merkle_leaves),
+                                           backend="hashlib"),
+          "docking: root vs hashlib")
+    codes = {c: int((first.full.results[:, 0] == c).sum()) for c in (1, 0, 2)}
+    return {"phase": "workloads", "part": "docking",
+            "config": f"{DOCK_R} receptors x {DOCK_P} peptides, max_steps "
+                      f"{DOCK_STEPS}",
+            "binds": codes[1], "no_bind": codes[0], "not_terminated":
+            codes[2], "root": first.merkle_root,
+            "mine_s": [s for k, s in steps if k == "mine"],
+            "verify_s": [s for k, s in steps if k == "verify"],
+            "reward_s": [s for k, s in steps if k == "reward"],
+            "audit_chain_s": audit_s,
+            "counts_mining": mined, "counts_with_audit": audited,
+            "launches": {"sha256": audited["sha256"],
+                         "merkle": audited["merkle"]}}
+
+
+def journal_path(dev, job) -> dict:
+    """The journal at full size: a ``Node(store=ChainStore(file))`` mines
+    a collatz full block over 2**20 args, a SAT block, a docking block and
+    a Classic block over 2**20 nonces; ``Node.recover`` from the journal's
+    bytes must reach the same tip and balances, and a copy with its last
+    100 bytes torn off must adopt height 3 and resync from the first
+    node. Launches, from the code: mining 3 x (16 SHA-256 + one
+    reduction) and Classic's 2 + 2 (mine and replay); a recovery's replay
+    one SHA-256 launch and one reduction for each full-mode family
+    verified in a batch (collatz, docking and a SAT refutation; none for a
+    certificate) and Classic's 2. The torn copy replays the first three
+    blocks and checkpoints at height 3, so its resync re-verifies only the
+    Classic block: the same counts as a whole recovery."""
+    import torch
+    from repro_torch.chain import ChainStore, Node
+    from repro_torch.chain.workloads import DockingWorkload, SatWorkload
+
+    def workloads():
+        return {"sat": SatWorkload(n_vars=SAT_VARS, n_clauses=SAT_CLAUSES,
+                                   seed=0, device=dev),
+                "docking": DockingWorkload(n_r=DOCK_R, n_p=DOCK_P, seed=0,
+                                           max_steps=DOCK_STEPS, device=dev)}
+
+    path = ROOT / "build" / "chip_smoke.journal"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    store = ChainStore(path)
+    append_s = []
+    orig = store.append_commit
+
+    def timed_append(*args):
+        t = time.perf_counter()
+        orig(*args)
+        append_s.append(time.perf_counter() - t)
+    store.append_commit = timed_append
+    kw = {"device": dev, "classic_arg_bits": MAIN_BITS}
+    node = Node(store=store, workloads=workloads(), **kw)
+    node.submit(job)
+    _zero_counts()
+    for family in ("full", "sat", "docking", None):
+        node.mine_block(family)
+    torch.cuda.synchronize()
+    mined = _counts()
+    check([b.mode for b in node.ledger.blocks]
+          == ["full", "sat", "docking", "classic"], "journal: block modes")
+    sat_refutes = node.chain_payloads()[1].certificate is None
+    _check_counts(mined, 3 * CHUNKS + 4, 3, "journal mining")
+    data = store.to_bytes()
+    fns = {job.name: job.fn}
+    # (SHA-256, Merkle) launches to verify all four blocks in one batch
+    replay = (4 + sat_refutes, 2 + sat_refutes)
+
+    _zero_counts()
+    t = time.perf_counter()
+    back = Node.recover(ChainStore.from_bytes(data), jash_fns=fns,
+                        workloads=workloads(), **kw)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t
+    recovered = _counts()
+    rep = back.last_recovery
+    check((rep.replayed, rep.adopted_height, rep.truncated_records,
+           rep.resynced_height) == (4, 4, 0, 4), f"journal: recovery {rep}")
+    check(back.ledger.tip_hash == node.ledger.tip_hash
+          and back.book.balances == node.book.balances,
+          "journal: recovered tip and balances")
+    _check_counts(recovered, *replay, "journal recovery")
+
+    _zero_counts()
+    t = time.perf_counter()
+    torn = Node.recover(ChainStore.from_bytes(data[:-100]), peers=[node],
+                        jash_fns=fns, workloads=workloads(), **kw)
+    torch.cuda.synchronize()
+    torn_s = time.perf_counter() - t
+    torn_counts = _counts()
+    rep2 = torn.last_recovery
+    check((rep2.replayed, rep2.adopted_height, rep2.truncated_records,
+           rep2.resynced_height) == (3, 3, 1, 4),
+          f"journal: torn-tail recovery {rep2}")
+    check(torn.ledger.tip_hash == node.ledger.tip_hash
+          and torn.book.balances == node.book.balances,
+          "journal: torn copy resynced to the same tip and balances")
+    _check_counts(torn_counts, *replay, "journal torn recovery")
+    size = path.stat().st_size
+    path.unlink()
+    return {"phase": "workloads", "part": "journal",
+            "blocks": ["full", "sat", "docking", "classic"],
+            "sat_block": "refutation" if sat_refutes else "certificate",
+            "journal_mb": size / 1e6, "append_ms": [s * 1e3 for s in
+                                                    append_s],
+            "recover_s": recover_s, "torn_recover_and_resync_s": torn_s,
+            "report": dataclasses.asdict(rep), "torn_report":
+            dataclasses.asdict(rep2), "tip": node.ledger.tip_hash,
+            "counts_mining": mined, "counts_recover": recovered,
+            "counts_torn_recover": torn_counts,
+            "launches": {k: mined[k] + recovered[k] + torn_counts[k]
+                         for k in ("sha256", "merkle")}}
+
+
+# the three roots and the tip (16 hex digits each) that the JAX package's
+# examples/quickstart.py prints; tests/test_torch_store.py holds these to
+# that script's output on the CPU
+QUICKSTART_ROOTS = ("cde2262ddccba7dd", "fb3e4c62f8da6235",
+                    "fb3e4c62f8da6235")
+QUICKSTART_TIP = "5fa79f3f7d88bd2e"
+
+
+def _printed_chain(out: str) -> dict:
+    """The blocks (workload, result count, root) and the tip a quickstart
+    printed; its RA timing and block times left out."""
+    blocks = [ln.split(" mined+verified")[0] for ln in out.splitlines()
+              if ln.startswith("block ")]
+    tips = [ln.split("tip=")[1] for ln in out.splitlines() if "tip=" in ln]
+    return {"blocks": blocks, "tip": tips}
+
+
+def quickstart_path() -> dict:
+    """``examples/torch_quickstart.py`` as a user runs it: on the card (no
+    ``--device``), then with ``--device cpu``; the two print the same
+    blocks and tip (the CPU tests hold the CPU run to the reference
+    script's, whose roots and tip are ``QUICKSTART_ROOTS`` and
+    ``QUICKSTART_TIP``). Launches on the card, from the code: the full block over
+    2**10 args one SHA-256 chunk and one reduction; each Classic block 2
+    SHA-256 launches to mine, the first 2 more to verify (the second's
+    replay is memoised)."""
+    import contextlib
+    import io
+    import runpy
+    import torch
+    script = ROOT / "examples" / "torch_quickstart.py"
+    printed, counts, seconds = {}, None, {}
+    for device in (None, "cpu"):
+        argv = [str(script)] + (["--device", device] if device else [])
+        buf, saved = io.StringIO(), sys.argv
+        sys.argv = argv
+        try:
+            _zero_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(script), run_name="__main__")
+            torch.cuda.synchronize()
+            seconds[device or "cuda"] = time.perf_counter() - t
+        finally:
+            sys.argv = saved
+        if device is None:
+            counts = _counts()
+        printed[device or "cuda"] = _printed_chain(buf.getvalue())
+        check("ledger verified: True" in buf.getvalue(),
+              f"quickstart on {device or 'the card'}: ledger verified")
+    card = printed["cuda"]
+    check(len(card["blocks"]) == 3 and len(card["tip"]) == 1
+          and [b.split()[2] for b in card["blocks"]]
+          == ["FULL", "CLASSIC", "CLASSIC"], f"quickstart blocks {card}")
+    check(card == printed["cpu"], f"quickstart: the card's blocks and tip "
+          f"equal the CPU's: {printed}")
+    check(tuple(b.split("root=")[1].rstrip("…") for b in card["blocks"])
+          == QUICKSTART_ROOTS and card["tip"][0].rstrip("…")
+          == QUICKSTART_TIP, "quickstart: the reference script's roots and "
+          "tip")
+    _check_counts(counts, 1 + 2 + 2 + 2, 1, "quickstart on the card")
+    return {"phase": "workloads", "part": "quickstart", **card,
+            "seconds_by_device": seconds, "counts": counts,
+            "launches": {"sha256": counts["sha256"],
+                         "merkle": counts["merkle"]}}
+
+
 ENTRY_OF = {"flash_attention": "flash_attention",
             "flash_attention_tc": "flash_attention", "wkv6": "wkv6",
             "decay_scan": "decay_scan"}
@@ -1270,7 +1654,6 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.chain import Network, Node
-    from repro_torch.core import verify
     from repro_torch.core.jash import Jash, JashMeta, collatz_jash
     from repro_torch.core.ledger import merkle_root
     from repro_torch.kernels import flash_attention, native, ref, sha256
@@ -1416,21 +1799,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3. the main path at full size -------------------------------------
-    for mod in _launch_counters().values():
-        mod.launches = 0
-    verify.hashlib_fallbacks = 0
+    _zero_counts()
     node = Node(device="cuda", classic_arg_bits=MAIN_BITS)
     # host-clock split of each block into the workload's three steps
-    split = {name: {} for name in node.workloads}
+    split = {name: [] for name in node.workloads}
     for name, wl in node.workloads.items():
-        for step in ("mine", "verify", "reward"):
-            def timed(*args, _orig=getattr(wl, step), _name=name, _step=step):
-                t = time.perf_counter()
-                out = _orig(*args)
-                torch.cuda.synchronize()
-                split[_name][_step + "_s"] = time.perf_counter() - t
-                return out
-            setattr(wl, step, timed)
+        _timed_steps(wl, split[name])
     base = collatz_jash(max_steps=512)
     job = Jash(base.name, base.fn,
                JashMeta(arg_bits=MAIN_BITS, res_bits=32, importance=0.8,
@@ -1451,13 +1825,13 @@ def main() -> int:
         emit({"phase": "block", "workload": rec.workload,
               "height": rec.height, "n_results": rec.n_results,
               "root": rec.merkle_root, "winner": rec.winner,
-              "block_time_s": r.block_time_s, **split[rec.workload]})
+              "block_time_s": r.block_time_s,
+              **{f"{step}_s": sec for step, sec in split[rec.workload]}})
     t = time.perf_counter()
     audited = node.audit_chain()
     audit_s = time.perf_counter() - t
     torch.cuda.synchronize()
-    counts = {name: mod.launches for name, mod in _launch_counters().items()}
-    counts["hashlib_fallbacks"] = verify.hashlib_fallbacks
+    counts = _counts()
 
     full, opt, classic = (r.payload for r in receipts)
     check([r.record.workload for r in receipts]
@@ -1519,7 +1893,18 @@ def main() -> int:
           "height": net.heights, "tip": net.tips[0],
           "seconds": time.perf_counter() - t})
 
-    # -- 5. serving at full width: qwen3-0.6b, rwkv6-7b, recurrentgemma-2b --
+    # -- 5. workload families, the journal and the quickstart ---------------
+    # each part zeroes the counts just before it and reads them just after
+    paths = {}
+    for name, run in (("sat", lambda: sat_path(dev)),
+                      ("docking", lambda: docking_path(dev)),
+                      ("journal", lambda: journal_path(dev, job)),
+                      ("quickstart", quickstart_path)):
+        t = time.perf_counter()
+        paths[name] = run()
+        emit({**paths[name], "seconds": time.perf_counter() - t, "gpu": smi})
+
+    # -- 6. serving at full width: qwen3-0.6b, rwkv6-7b, recurrentgemma-2b --
     # bf16 attention at hd 128 and 256 takes the tensor-core kernel; the
     # reduced float32 models (2 layers, 5 for recurrentgemma, hd 32, prompt
     # 100, 8 new tokens) take the CUDA-core one
@@ -1541,15 +1926,11 @@ def main() -> int:
         emit(res)
     emit(sha_kernels_a_call(dev))
 
-    # -- 6. launch counts and the kernel table -------------------------------
+    # -- 7. launch counts and the kernel table -------------------------------
     # the path's launches do not depend on the kernels' speed: 21 SHA-256
     # calls, and two Merkle reductions (the commit and the verify), one
     # launch each
-    check(counts["sha256"] == 21 and counts["merkle"] == 2,
-          f"21 SHA-256 and 2 Merkle launches on the mining path: {counts}")
-    check(counts["hashlib_fallbacks"] == 0, "hashlib fallback never fired")
-    check(all(counts[k] == 0 for k in ENTRY_OF),
-          "no serving kernel launched on the mining path")
+    _check_counts(counts, 21, 2, "the mining path")
     chunk = sha_times[0]
     qwen, rg = served["qwen3-0.6b"]["counts"], \
         served["recurrentgemma-2b"]["counts"]
@@ -1581,12 +1962,18 @@ def main() -> int:
         row("sha256_rows", "sha256", "sha256.cu", "sha256.py:34",
             counts["sha256"], {**chunk, "library_ms": None}, path="mining",
             device_ms_from_graph=chunk["device_ms_from_graph"],
-            classic_shapes=sha_times[1:]),
+            classic_shapes=sha_times[1:],
+            launches_by_path={"mining": counts["sha256"], **{
+                name: res["launches"]["sha256"]
+                for name, res in paths.items()}}),
         row("merkle_reduce", "merkle", "merkle.cu", "merkle.py:132",
             counts["merkle"], {**merkle_time, "library_ms": None},
             path="mining", unit="ms per reduction; launches are reductions "
                                 "(two a mining path, 14 levels each)",
-            device_ms_from_graph=merkle_time["device_ms_from_graph"]),
+            device_ms_from_graph=merkle_time["device_ms_from_graph"],
+            launches_by_path={"mining": counts["merkle"], **{
+                name: res["launches"]["merkle"]
+                for name, res in paths.items()}}),
         row("flash_attention_tc", "flash_attention_tc",
             "flash_attention_tc.cu", "flash_attention.py:28",
             qwen["flash_attention_tc"] + rg["flash_attention_tc"],

@@ -6,13 +6,24 @@ workloads::
     node = Node()                     # mines on the CUDA card
     node.submit(my_jash)
     receipt = node.mine_block()
+
+``repro_torch.chain.store`` is the crash-fault layer: ``ChainStore`` is a
+durable append-only journal of everything a ``Node(store=...)`` commits,
+byte for byte the reference's, and ``Node.recover`` rebuilds a node from
+it after a crash (truncating torn/corrupted tails instead of failing).
+
+``repro_torch.chain.workloads`` holds the integer application families,
+SAT (certificate-asymmetric) and docking (consensus-bound data bundle).
 """
 from repro_torch.chain.network import BroadcastResult, Network
 from repro_torch.chain.node import (BlockReceipt, BlockRecord, Node,
-                                    NodeState, VerifyCache)
+                                    NodeState, RecoveryReport, VerifyCache)
+from repro_torch.chain.store import (ChainStore, collect_jash_fns,
+                                     payload_checksum)
 from repro_torch.chain.workload import (
     BlockContext, BlockPayload, ChainError, ClassicSha256Workload,
-    JashFullWorkload, JashOptimalWorkload, Workload, verify_chain_batched,
+    JashFullWorkload, JashOptimalWorkload, Workload, certificate_digest,
+    verify_chain_batched,
 )
 
 __all__ = [
@@ -22,13 +33,18 @@ __all__ = [
     "BlockRecord",
     "BroadcastResult",
     "ChainError",
+    "ChainStore",
     "ClassicSha256Workload",
     "JashFullWorkload",
     "JashOptimalWorkload",
     "Network",
     "Node",
     "NodeState",
+    "RecoveryReport",
     "VerifyCache",
     "Workload",
+    "certificate_digest",
+    "collect_jash_fns",
+    "payload_checksum",
     "verify_chain_batched",
 ]

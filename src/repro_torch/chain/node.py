@@ -18,9 +18,10 @@ never extends its own chain with a payload a peer would reject.  The
 longest-valid-chain fork choice when tips diverge.
 
 The port of ``repro/chain/node.py``: the node mines and verifies on one
-device (``device=None`` means the CUDA card). The durable journal
-(``store``/``recover``) and signed origin binding (``keyring``) are not
-ported yet.
+device (``device=None`` means the CUDA card). A ``Node(store=...)``
+journals every commit to a ``ChainStore`` and ``Node.recover`` rebuilds
+a node from one, written by either package. Signed origin binding
+(``keyring``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,17 +30,26 @@ import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.core.authority import ReviewReport, RuntimeAuthority
 from repro_torch.core.difficulty import DifficultyController
 from repro_torch.core.jash import Jash
 from repro_torch.core.ledger import Block, Ledger
 from repro_torch.core.rewards import CreditBook
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.kernels.native import KernelLaunchError
+from repro_torch.chain.store import ChainStore, collect_jash_fns
 from repro_torch.chain.workload import (
     BlockContext, BlockPayload, ChainError, ClassicSha256Workload,
     JashFullWorkload, JashOptimalWorkload, RewardEntries, Workload,
     is_stateful, verify_chain_batched,
 )
+
+
+# A fault of the card is not a block that fails re-verification: a replay
+# that met one raises instead of truncating (and so rewriting) the journal.
+_DEVICE_FAULTS = (torch.AcceleratorError, KernelLaunchError)
 
 
 class VerifyCache:
@@ -205,6 +215,19 @@ class BlockReceipt:
 
 
 @dataclasses.dataclass(frozen=True)
+class RecoveryReport:
+    """What ``Node.recover`` did: how many journal blocks it replayed,
+    the height it adopted after truncating damage (``truncated_records``
+    counts journal records discarded — torn/corrupted tail plus blocks
+    that failed re-verification), and the height after resyncing the
+    lost tail from peers."""
+    replayed: int
+    adopted_height: int
+    truncated_records: int
+    resynced_height: int
+
+
+@dataclasses.dataclass(frozen=True)
 class NodeState:
     node_id: int
     height: int
@@ -230,6 +253,7 @@ class Node:
                  snapshot_ring: int = 4,
                  use_verify_cache: bool = True,
                  confirmation_depth: Optional[int] = None,
+                 store: Optional[ChainStore] = None,
                  ra: Optional[RuntimeAuthority] = None,
                  device: DeviceLike = None) -> None:
         """``device`` is where the node mines and verifies (``None``: the
@@ -262,7 +286,13 @@ class Node:
         checkpoints enabled the ring must cover the non-final tail
         (``confirmation_depth <= (snapshot_ring - 1) *
         snapshot_interval``) — validated here, at construction.  ``None``
-        (the default) keeps the pure longest-valid-chain behavior."""
+        (the default) keeps the pure longest-valid-chain behavior.
+
+        ``store`` attaches a durable ``ChainStore`` journal: every
+        commit and fork-choice rebuild is appended to it, and after a
+        crash ``Node.recover(store, ...)`` rebuilds an equivalent node
+        from the journal.  The store must be empty — recovery, not
+        construction, is how a journal with history is adopted."""
         if n_lanes < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
         if snapshot_interval < 0:
@@ -324,6 +354,14 @@ class Node:
         self._finalized = 0                # monotone finalized height
         self._evidence_floor = 0           # heights below: payload pruned
         self.finality_rejects = 0          # reorgs rejected at the fence
+        if store is not None and not store.is_empty():
+            raise ValueError(
+                "store already holds journal records — a fresh node may "
+                "not silently shadow an existing chain; use "
+                "Node.recover(store, ...) to adopt it")
+        self.store = store
+        self._journal_mute = False         # recovery replay: don't re-log
+        self.last_recovery: Optional[RecoveryReport] = None
 
     # -- workload registry --------------------------------------------
     @staticmethod
@@ -437,6 +475,8 @@ class Node:
             state_digest=payload.state_digest)
         self._hash_index.add(blk.block_hash)
         self._payloads[blk.height] = payload
+        if self.store is not None and not self._journal_mute:
+            self.store.append_commit(blk, payload)
         rewards = self.workloads[payload.workload].reward(self.book, payload)
         # during a fork-choice rebuild the stateful workloads already
         # sit at the *tail end* state (batched verification replayed
@@ -692,7 +732,11 @@ class Node:
                 _stateful_restore(wl, pre_fork)
             return False
         # adopt: truncate to the checkpoint and rebuild from there (the
-        # kept prefix is bit-identical between the two chains)
+        # kept prefix is bit-identical between the two chains).  The
+        # journal stays append-only across reorgs: one TRUNCATE record,
+        # then the adopted tail as ordinary commits.
+        if self.store is not None and start < self.ledger.height:
+            self.store.append_truncate(start)
         del self.ledger.blocks[start:]
         self.book.balances = dict(snap.balances) if snap else {}
         self.book.total_issued = snap.total_issued if snap else 0.0
@@ -746,3 +790,109 @@ class Node:
         and a fresh joiner must bootstrap from a peer that still holds
         the full evidence (weak subjectivity; DESIGN.md §12)."""
         return [self._payloads.get(h) for h in range(self.ledger.height)]
+
+    # -- crash recovery (the ChainStore journal) ----------------------
+    @classmethod
+    def recover(cls, store: ChainStore, *,
+                peers: Sequence["Node"] = (),
+                jash_fns: Optional[Dict[str, object]] = None,
+                node: Optional["Node"] = None,
+                **node_kwargs) -> "Node":
+        """Rebuild a node from its durable journal after a crash.
+
+        Reads the journal (damaged tails already truncated by
+        ``ChainStore.read_chain``), replays the surviving chain through
+        the **ordinary verify path** — a block that fails re-verification
+        truncates the replay there instead of crashing — commits the
+        adopted prefix, compacts the journal to it, and finally pulls
+        each node in ``peers`` through ``consider_chain`` to resync the
+        lost tail.  What happened is recorded in ``last_recovery``.
+
+        The recovered node is built from ``node_kwargs`` (same
+        constructor arguments as the crashed node, ``device`` among them
+        — workload parameters are consensus policy, they are not
+        journaled), or pass a pre-built fresh ``node=`` shell.
+        ``jash_fns`` maps jash names to their functions for payload
+        families whose evidence must be re-*executed* (full/optimal
+        researcher jashes); the classic fallback and the application
+        workloads resolve themselves."""
+        if node is None:
+            node = cls(**node_kwargs)
+        if node.ledger.height != 0 or node.store is not None:
+            raise ChainError(
+                "Node.recover needs a fresh node shell (no committed "
+                "blocks, no attached store)")
+        fns = collect_jash_fns(node.workloads, jash_fns)
+        read = store.read_chain(jash_fns=fns)
+        adopted = node._replay_journal(read.blocks, read.payloads)
+        truncated = read.truncated_records + (len(read.blocks) - adopted)
+        if not read.clean or adopted < len(read.blocks):
+            store.rewrite(read.blocks[:adopted], read.payloads[:adopted])
+        node.store = store
+        for peer in peers:
+            if peer.ledger.height > node.ledger.height:
+                node.consider_chain(list(peer.ledger.blocks),
+                                    peer.chain_payloads())
+        node.last_recovery = RecoveryReport(
+            replayed=len(read.blocks), adopted_height=adopted,
+            truncated_records=truncated,
+            resynced_height=node.ledger.height)
+        return node
+
+    def _replay_journal(self, blocks: Sequence[Block],
+                        payloads: Sequence[Optional[BlockPayload]]) -> int:
+        """Commit the longest valid prefix of a journal chain; returns
+        how many blocks were adopted.  Validity is exactly what
+        ``consider_chain`` demands: genesis-rooted hash links,
+        header/payload cross-checks, consensus reward, and bit-exact
+        workload re-verification (on this node's device: a decoded
+        ``FullResult`` names none).  A block whose verification raises is
+        not adopted, except that a fault of the card is raised."""
+        n = 0
+        prev = Ledger.GENESIS_HASH
+        for blk, payload in zip(blocks, payloads):
+            if (blk.height != n or blk.prev_hash != prev
+                    or payload is None
+                    or payload.block_reward != self.block_reward
+                    or not self._payload_matches(blk, payload)):
+                break
+            prev = blk.block_hash
+            n += 1
+        ok = 0
+        try:
+            if n and verify_chain_batched(self.workloads, payloads[:n]):
+                ok = n
+        except _DEVICE_FAULTS:
+            raise
+        except Exception:
+            ok = 0
+        if ok == 0 and n:
+            # the batched pass failed somewhere — scan block by block
+            # for the longest verifying prefix (stateful workloads
+            # advance exactly as far as verification succeeds, which is
+            # the adopted tail state); reset them first, the failed
+            # batch may have advanced them partway
+            for wl in self.workloads.values():
+                if is_stateful(wl):
+                    wl.reset()
+            for i in range(n):
+                try:
+                    if not verify_chain_batched(self.workloads,
+                                                payloads[i:i + 1]):
+                        break
+                except _DEVICE_FAULTS:
+                    raise
+                except Exception:
+                    break
+                ok = i + 1
+        self._in_rebuild = True
+        self._journal_mute = True      # replay must not re-journal
+        try:
+            for payload in payloads[:ok]:
+                self._commit(payload)
+        finally:
+            self._in_rebuild = False
+            self._journal_mute = False
+        if ok and self.snapshot_interval > 0 and self._snapshots.maxlen:
+            self._push_snapshot()
+        return ok

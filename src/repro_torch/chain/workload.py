@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import (Dict, List, Optional, Protocol, Sequence,
+from typing import (Callable, Dict, List, Optional, Protocol, Sequence,
                     Tuple, runtime_checkable)
 
 import numpy as np
@@ -497,3 +497,14 @@ class ClassicSha256Workload(JashOptimalWorkload):
                              description=base.meta.description),
                     example_args=base.example_args)
         return PreparedWork(ctx, _sized(jash, ctx.work))
+
+    def journal_jash_fns(self) -> Dict[str, Callable]:
+        """Journal-decode support (``Node.recover``): a jash function
+        cannot be serialized, so decoding resolves it by name — the
+        classic base jash is rebuilt locally and its (stable-identity)
+        function registered under its wire name.  Workloads whose
+        verification never executes ``payload.jash.fn`` (SAT, docking)
+        need no such hook."""
+        if self._base is None:
+            self._base = classic_jash()
+        return {self._base.name: self._base.fn}

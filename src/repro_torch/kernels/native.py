@@ -193,6 +193,12 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+class KernelLaunchError(RuntimeError):
+    """A hand-written kernel failed to launch (a fault of the card, not of
+    the data it was given)."""
+
+
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+        raise KernelLaunchError(
+            f"{name}: kernel launch failed with CUDA error {rc}")

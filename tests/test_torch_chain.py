@@ -146,7 +146,8 @@ def test_node_needs_a_card_unless_told_otherwise(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    code = ("import sys, repro_torch, repro_torch.chain, repro_torch.convert;"
+    code = ("import sys, repro_torch, repro_torch.chain, repro_torch.convert,"
+            " repro_torch.chain.workloads;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
