@@ -21,7 +21,14 @@ On one CUDA card it:
      for bit to its one-thread-a-chain kernel and to a second launch, and
      WKV-6 within 1e-4 (relative plus absolute, over
      head sizes that cut through its 16 x 4 register tiles and sequence
-     lengths at the edges of its 16-step chunks);
+     lengths at the edges of its 16-step chunks), and the flash backward
+     (dQ, dK, dV) within 1e-5 of its plain twin (scaled by each
+     tensor's largest entry, at least 1) over 44 cases (head dims 32, 64
+     and 128, GQA and MQA, causal or not, windows, ragged S and T, and
+     the training calls of pnpcoin-demo and, in float32, qwen3-0.6b's
+     shape), each bit-equal to a second launch,
+     with the forward's training instance (which saves the row
+     log-sum-exp) bit-equal to its serving instance;
      then times kernels, plain versions and, for attention, PyTorch's SDPA
      as a yardstick, at the main paths' shapes (the two flash kernels and
      SDPA in turns; the CUDA-core kernel also in float32, its own path, at
@@ -30,7 +37,10 @@ On one CUDA card it:
      mining path's three shapes, with events around 10 launches and
      replayed from a CUDA graph; the decay scan's tiled and one-thread-a-
      chain kernels in turns; a Merkle reduction of 2**20 leaves by events
-     and from a CUDA graph);
+     and from a CUDA graph; the flash backward at pnpcoin-demo's and
+     qwen3-0.6b's shapes by events and from a graph, in turns with SDPA's
+     memory-efficient backward, and the forward's training instance in
+     turns with its serving instance);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -50,7 +60,17 @@ On one CUDA card it:
      and a Classic block over 2**20 args, recovered whole and, torn by
      100 bytes, recovered to height 3 and resynced from the first node;
      then ``examples/torch_quickstart.py`` on the card and on the CPU,
-     which must print the same blocks and tip;
+     which must print the same blocks and tip; then proof-of-useful-work
+     training of pnpcoin-demo (2 layers, d_model 256, batch 4 of 32
+     tokens, 2 microsteps a block) as ``examples/chain_train_model.py``
+     runs it: a 2-node network mines 4 blocks (each verified by the other
+     node's replay), recovers node 0 from its journal and reorgs a losing
+     private block, the flash forward and backward launches counted
+     against the layers and microsteps; the training step split by CUDA
+     events into forward, backward and optimiser; the same 4 blocks on
+     the CPU port (losses within 1e-3); and
+     ``examples/torch_chain_train_model.py`` in a process of its own,
+     which must print the same heights, losses and digests;
   6. serves three models at full width and depth through
      ``repro_torch.launch.serve`` (batch 8, 32 new tokens, bf16, random
      weights from a fixed seed): qwen3-0.6b (prompt 2048; flash attention),
@@ -61,8 +81,11 @@ On one CUDA card it:
      of each kernel must equal the plain version on the same inputs, and a
      reduced float32 model served on the card (its attention on the
      CUDA-core kernel, launches counted) and on the CPU must agree;
-  7. counts with torch.profiler the CUDA kernels a SHA-256 call runs (one;
-     last, since a traced process launches more slowly afterwards), checks
+  7. counts with torch.profiler the CUDA kernels a SHA-256 call runs (one)
+     and those of 3 pnpcoin-demo training steps (the flash forward's
+     training instance and the backward's two kernels once a layer and
+     step, no attention kernel of PyTorch's; last, since a traced process
+     launches more slowly afterwards), checks
      each kernel's launch count from its own path (21 SHA-256 and 2
      Merkle launches, one a reduction, a mining path) and that the
      verifier's hashlib fallback never fired, and prints the kernel table.
@@ -129,8 +152,10 @@ BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
 # instantiations in the library: SHA-256 3 (raw/bswap) x 3 (W = 2, 8 or
 # any), Merkle 1, flash 4 head dims x 2 dtypes, tensor-core flash 3 head
-# dims (bf16), WKV-6 2 dtypes, decay scan 2 (tiled, one thread a chain)
-N_KERNEL_INSTANCES = 9 + 1 + 8 + 3 + 2 + 2
+# dims (bf16), WKV-6 2 dtypes, decay scan 2 (tiled, one thread a chain),
+# flash's training instance (float32, with the row log-sum-exp) 3 head
+# dims, the flash backward 2 kernels x 3 head dims
+N_KERNEL_INSTANCES = 9 + 1 + 8 + 3 + 2 + 2 + 3 + 6
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -144,6 +169,24 @@ FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 DECAY_STEPS, DECAY_CHANNELS, SHA_BLOCK_ROWS = 128, 64, 64
 # relative plus absolute, float32 state and sums in both versions
 DECAY_TOL, WKV_TOL = 1e-5, 1e-4
+
+# the flash backward against its twin, float32: max |kernel - twin| <=
+# BWD_TOL max(1, max |twin|) for each of dQ, dK and dV. Both sum in
+# float32 in different orders; at qwen3-0.6b's S = 2048 the sums run over
+# 2048 keys or queries and the two differ by up to 2.5e-5 on entries near
+# zero (measured on the H100), so the bound scales with the tensor, and
+# that case also reports each one's error against a float64 twin
+BWD_TOL = 1e-5
+# the attention calls of training: pnpcoin-demo's (B, S, H, Kv, hd) as the
+# chain trains it, and qwen3-0.6b's prefill shape in float32
+DEMO_ATTN = (4, 32, 8, 4, 32)
+QWEN_F32_ATTN = (SERVE_BATCH, SERVE_PROMPT, 16, 8, 128)
+# pnpcoin-demo's chain: as examples/chain_train_model.py runs it
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_BLOCKS = 32, 4, 2, 4
+# training steps profiled in the last phase
+TRAIN_PROFILED = 3
+# |card loss - CPU loss| <= TRAIN_LOSS_TOL |CPU loss|, block by block
+TRAIN_LOSS_TOL = 1e-3
 
 MAIN_BITS = 20
 # seconds of quiet at each end of a profiled window
@@ -186,6 +229,7 @@ def kernel_name(mangled: str) -> str:
     import re
     found = re.search(r"(sha256_rows_kernel|merkle_reduce_kernel|"
                       r"flash_fwd_kernel|flash_tc_kernel|wkv6_kernel|"
+                      r"dq_kernel|dkv_kernel|"
                       r"decay_scan_per_chain_kernel|decay_scan_kernel)",
                       mangled)
     check(found is not None, f"known kernel name in {mangled}")
@@ -198,6 +242,10 @@ def kernel_name(mangled: str) -> str:
     hd = re.search(r"ILi(\d+)E", mangled)
     if name == "flash_tc_kernel":
         name += f"<bf16,hd={hd[1]}>"
+    elif name in ("dq_kernel", "dkv_kernel"):
+        name = f"flash_bwd_{name}<f32,hd={hd[1]}>"
+    elif name == "flash_fwd_kernel" and "Lb1E" in mangled:
+        name += f"<f32,hd={targs[2]},lse>"
     elif targs:
         dtype = "f32" if targs[1] == "f" else "bf16"
         name += f"<{dtype},hd={targs[2]}>" if targs[2] else f"<{dtype}>"
@@ -732,6 +780,57 @@ def sha_kernels_a_call(dev) -> dict:
           f"one CUDA kernel a sha256_rows_cuda call: {kernels}")
     return {"phase": "sha256_kernels_a_call", "calls": 5,
             "cuda_kernels": len(kernels), "kernel": kernels[0]}
+
+
+# names of PyTorch's own attention kernels (SDPA's flash, memory-efficient
+# and cuDNN backends): none may run on the training path
+LIBRARY_ATTENTION = ("pytorch_flash", "fmha", "efficient_attention",
+                     "mem_eff", "cudnn", "flash::")
+
+
+def train_kernels_a_step(dev) -> dict:
+    """The CUDA kernels of ``TRAIN_PROFILED`` pnpcoin-demo training steps
+    (the workload's step, on the card), counted by ``torch.profiler`` in a
+    window with quiet time at both ends: the flash forward's training
+    instance, the backward's dQ and dK/dV kernels once a layer and step
+    each, and no attention kernel of PyTorch's. Last, as the SHA-256
+    count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train import steps
+    cfg = get_config("pnpcoin-demo")
+    step = steps.make_train_step(cfg, steps.TrainHparams(warmup_steps=4,
+                                                         total_steps=512))
+    state = steps.make_train_state(cfg, random.key(0), dev)
+    batch = SyntheticTokenPipeline(cfg, InputShape(
+        f"chain{TRAIN_SEQ}x{TRAIN_BATCH}", TRAIN_SEQ, TRAIN_BATCH,
+        "train")).microbatch(0, 0)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_QUIET_S)
+        for _ in range(TRAIN_PROFILED):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_QUIET_S)
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    count = {"flash_fwd_kernel": 0, "dq_kernel": 0, "dkv_kernel": 0}
+    for name in names:
+        for key in count:
+            if key in name:
+                count[key] += 1
+    want = cfg.n_layers * TRAIN_PROFILED
+    library = [n for n in names if any(t in n for t in LIBRARY_ATTENTION)]
+    check(all(n == want for n in count.values()) and not library,
+          f"{TRAIN_PROFILED} training steps: {want} launches of each hand "
+          f"kernel and no library attention kernel: {count}, {library}")
+    return {"phase": "train_kernels_a_step", "steps": TRAIN_PROFILED,
+            "cuda_kernels": len(names), "hand_kernels": count,
+            "library_attention_kernels": library}
 
 
 def _hashlib_root(tree) -> str:
@@ -1437,16 +1536,19 @@ def quickstart_path() -> dict:
 
 
 ENTRY_OF = {"flash_attention": "flash_attention",
-            "flash_attention_tc": "flash_attention", "wkv6": "wkv6",
+            "flash_attention_tc": "flash_attention",
+            "flash_attention_bwd": "flash_attention", "wkv6": "wkv6",
             "decay_scan": "decay_scan"}
 
 
 def _launch_counters():
     from repro_torch.kernels import (decay_scan, flash_attention,
-                                     flash_attention_tc, merkle, sha256, wkv6)
+                                     flash_attention_bwd, flash_attention_tc,
+                                     merkle, sha256, wkv6)
     return {"sha256": sha256, "merkle": merkle,
             "flash_attention": flash_attention,
-            "flash_attention_tc": flash_attention_tc, "wkv6": wkv6,
+            "flash_attention_tc": flash_attention_tc,
+            "flash_attention_bwd": flash_attention_bwd, "wkv6": wkv6,
             "decay_scan": decay_scan}
 
 
@@ -1646,6 +1748,429 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
             "reduced_card_vs_cpu_max_abs_err": small_err}
 
 
+# the flash backward's cases: (B, S, T, H, Kv, causal, window), at each head
+# dim it takes; S and T off its tiles of 32 queries and 32 keys, GQA and
+# MQA, causal or not, windows, S != T both ways
+BWD_CASES = [(2, 33, 33, 4, 2, True, 0), (1, 100, 100, 8, 1, True, 0),
+             (2, 70, 150, 4, 2, False, 0), (1, 150, 70, 4, 4, True, 0),
+             (2, 90, 90, 4, 4, True, 17), (4, 32, 32, 8, 4, True, 0),
+             (1, 64, 64, 2, 1, True, 32), (2, 31, 31, 2, 1, True, 0),
+             (1, 32, 65, 4, 2, False, 0), (2, 97, 97, 4, 1, False, 20),
+             (1, 129, 129, 2, 2, True, 0), (1, 200, 200, 2, 1, True, 64),
+             (3, 1, 1, 2, 1, True, 0), (1, 257, 257, 8, 2, True, 0)]
+
+
+def flash_bwd_vs_plain(dev) -> dict:
+    """The flash backward against its plain twin (``ref.
+    flash_attention_bwd_ref``) on the same q, k, v, output, row
+    log-sum-exp and output gradient, within ``BWD_TOL`` times each
+    tensor's largest entry (at least 1), and bit-equal to a second
+    launch: ``BWD_CASES`` at head dims 32, 64 and 128, then pnpcoin-demo's
+    training call and qwen3-0.6b's prefill shape in float32 (causal),
+    where the kernel and the twin are also held against the twin's math
+    in float64 (output and log-sum-exp recomputed in float64). The
+    forward's training instance gives the output and log-sum-exp, its
+    output bit-equal to the serving instance's and its log-sum-exp within
+    1e-5 of the plain one's."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(20268)
+    cases = [(B, S, T, H, Kv, hd, causal, window) for hd in (32, 64, 128)
+             for B, S, T, H, Kv, causal, window in BWD_CASES]
+    for B, S, H, Kv, hd in (DEMO_ATTN, QWEN_F32_ATTN):
+        cases.append((B, S, S, H, Kv, hd, True, 0))
+    worst = {"abs": 0.0, "rel": 0.0, "lse": 0.0}
+    float64 = {}
+    for B, S, T, H, Kv, hd, causal, window in cases:
+        label = f"B={B} S={S} T={T} H={H} Kv={Kv} hd={hd} causal={causal} " \
+                f"window={window}"
+        q, k, v = (torch.randn(shape, generator=gen, device=dev) for shape in
+                   ((B, S, H, hd), (B, T, Kv, hd), (B, T, Kv, hd)))
+        o, lse = fa.flash_attention_lse_cuda(q, k, v, causal=causal,
+                                             window=window)
+        check(torch.equal(o, fa.flash_attention_cuda_core(
+            q, k, v, causal=causal, window=window)),
+            f"flash training instance's output = serving instance's, {label}")
+        want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                               window=window)
+        lse_err = float((lse - want_lse).abs().max())
+        check(torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5),
+              f"flash log-sum-exp vs plain ({lse_err}), {label}")
+        do = torch.randn(o.shape, generator=gen, device=dev)
+        got = fb.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                          window=window)
+        again = fb.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                            causal=causal, window=window)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash backward: two launches equal, {label}")
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max())
+            scale = max(1.0, float(w.abs().max()))
+            worst["abs"] = max(worst["abs"], err)
+            worst["rel"] = max(worst["rel"], err / scale)
+            check(err <= BWD_TOL * scale,
+                  f"flash backward vs plain ({err}, scale {scale}), {label}")
+        worst["lse"] = max(worst["lse"], lse_err)
+        if (B, S, H, Kv, hd) == QWEN_F32_ATTN:
+            q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+            scores = _scores_f64(q64, k64)
+            o64 = torch.einsum("bhst,bthd->bshd", scores.softmax(-1),
+                               v64.repeat_interleave(H // Kv, 2))
+            lse64 = scores.logsumexp(-1)
+            del scores
+            exact = _bwd_f64(q64, k64, v64, o64, lse64, do64)
+            float64 = {
+                "kernel_vs_float64": [float((g.double() - e).abs().max())
+                                      for g, e in zip(got, exact)],
+                "twin_vs_float64": [float((w.double() - e).abs().max())
+                                    for w, e in zip(want, exact)]}
+            del q64, k64, v64, do64, o64, lse64, exact
+        del q, k, v, o, lse, do, got, again, want
+    torch.cuda.empty_cache()
+    return {"cases": len(cases),
+            "tolerance": f"max |kernel - twin| <= {BWD_TOL} max(1, max "
+                         "|twin|), each of dQ, dK, dV",
+            "max_abs_err": worst["abs"],
+            "max_err_over_scale": worst["rel"],
+            "lse_max_abs_err": worst["lse"],
+            "qwen3_shape_dq_dk_dv_max_abs_err_vs_float64": float64}
+
+
+def _scores_f64(q, k):
+    """Causal scaled scores (B, H, S, T) in float64, K repeated over each
+    KV head's query heads, masked with -inf."""
+    import torch
+    g = q.shape[2] // k.shape[2]
+    s = torch.einsum("bshd,bthd->bhst", q, k.repeat_interleave(g, 2)) \
+        / q.shape[-1] ** 0.5
+    return s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool,
+                                    device=q.device).triu(1), float("-inf"))
+
+
+def _bwd_f64(q, k, v, o, lse, do):
+    """``ref.flash_attention_bwd_ref``'s steps in float64, causal."""
+    import torch
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    g = H // Kv
+    kf, vf = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    s = torch.einsum("bshd,bthd->bhst", q, kf) / hd ** 0.5
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                      device=q.device).tril()
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    d = (do * o).sum(-1).transpose(1, 2)
+    dv = torch.einsum("bhst,bshd->bthd", p, do)
+    ds = p * (torch.einsum("bshd,bthd->bhst", do, vf) - d[..., None])
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf) / hd ** 0.5
+    dk = torch.einsum("bhst,bshd->bthd", ds, q) / hd ** 0.5
+    return (dq, dk.reshape(B, S, Kv, g, hd).sum(3),
+            dv.reshape(B, S, Kv, g, hd).sum(3))
+
+
+def flash_bwd_times(dev) -> dict:
+    """The flash backward at pnpcoin-demo's training call and at
+    qwen3-0.6b's prefill shape in float32 (causal): by events (10 calls in
+    a row) and replayed from a CUDA graph, in turns with SDPA's
+    memory-efficient backward on the same float32 inputs (K and V repeated
+    to H heads, leaf tensors, so only the attention's backward runs), the
+    plain twin, and the bound: 5 products of hd FMAs (2 flops each) per
+    (query, key) pair of the causal half at 67 TFLOP/s, against q, k, v,
+    o, dO, the log-sum-exp read and dQ, dK, dV written once at 3.35 TB/s.
+    Also the forward's training instance (with the log-sum-exp) in turns
+    with its serving instance."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(20269)
+    out = {}
+    for name, (B, S, H, Kv, hd) in (("pnpcoin-demo", DEMO_ATTN),
+                                    ("qwen3-0.6b", QWEN_F32_ATTN)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev) for shape in
+                   ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+        o, lse = fa.flash_attention_lse_cuda(q, k, v, causal=True)
+        do = torch.randn(o.shape, generator=gen, device=dev)
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for x in (k, v))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sd_out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+
+        def kernel():
+            return fb.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               causal=True)
+
+        def sdpa():
+            return torch.autograd.grad(sd_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        dq_sdpa = sdpa()[0].transpose(1, 2)
+        dq = kernel()[0]
+        sdpa_err = float((dq_sdpa - dq).abs().max())
+        check(torch.allclose(dq_sdpa, dq, rtol=1e-4, atol=1e-4),
+              f"SDPA's backward agrees with the kernel's dQ at {name} "
+              f"({sdpa_err})")
+        ms = in_turns({"kernel": kernel, "sdpa_efficient": sdpa})
+        dev_ms = graph_ms(kernel)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal=True), reps=1, rounds=1)
+        fwd = in_turns({
+            "training_instance": lambda: fa.flash_attention_lse_cuda(
+                q, k, v, causal=True),
+            "serving_instance": lambda: fa.flash_attention_cuda_core(
+                q, k, v, causal=True)})
+        pairs = S * (S + 1) // 2
+        flops = 5 * 2 * hd * pairs * B * H
+        nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+        t_ops, t_bytes = flops / F32_FLOPS_S, nbytes / HBM_BYTES_S
+        bound = max(t_ops, t_bytes) * 1e3
+        out[name] = {
+            "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} float32 causal",
+            "ms": ms["kernel"], "device_ms_from_graph": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": ms["sdpa_efficient"],
+            "library": "scaled_dot_product_attention backward, efficient "
+                       "backend",
+            "sdpa_dq_max_abs_err": sdpa_err,
+            "bound_arithmetic": f"max({flops:.4g} flops / 67e12, "
+                                f"{nbytes:.4g} B / 3.35e12) = "
+                                f"max({t_ops * 1e3:.4g}, "
+                                f"{t_bytes * 1e3:.4g}) ms",
+            "share_of_bound": bound / ms["kernel"],
+            "forward_training_instance_ms": fwd["training_instance"],
+            "forward_serving_instance_ms": fwd["serving_instance"]}
+        del q, k, v, o, lse, do, qt, kt, vt, sd_out, dot, dq, dq_sdpa
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_step_split(dev) -> dict:
+    """One pnpcoin-demo training step (the workload's: batch 4 of 32
+    tokens, float32) split by CUDA events into the forward (loss), the
+    backward (autograd, through the flash backward) and the optimiser
+    (the schedule and AdamW), with the peak device memory of a step; the
+    median of 5 steps after one warm-up."""
+    import torch
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.train import steps
+    cfg = get_config("pnpcoin-demo")
+    model = build_model(cfg)
+    state = steps.make_train_state(cfg, random.key(0), dev)
+    batch = SyntheticTokenPipeline(cfg, InputShape(
+        f"chain{TRAIN_SEQ}x{TRAIN_BATCH}", TRAIN_SEQ, TRAIN_BATCH,
+        "train")).microbatch(0, 0)
+    split = {"forward": [], "backward": [], "optimiser": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        params = tree_map(lambda t: t.detach().requires_grad_(True),
+                          state.params)
+        ev[0].record()
+        loss, _ = model.loss(params, batch)
+        ev[1].record()
+        grads = steps._unflatten(params, iter(torch.autograd.grad(
+            loss, tree_leaves(params))))
+        ev[2].record()
+        with torch.no_grad():
+            lr = cosine_schedule(state.opt.step + 1, peak_lr=3e-4,
+                                 warmup_steps=4, total_steps=512)
+            new, opt = adamw_update(tree_map(torch.Tensor.detach, params),
+                                    grads, state.opt, lr)
+        ev[3].record()
+        ev[3].synchronize()
+        state = steps.TrainState(new, opt)
+        if rep:
+            for i, key in enumerate(split):
+                split[key].append(ev[i].elapsed_time(ev[i + 1]))
+    return {"ms": {k: statistics.median(v) for k, v in split.items()},
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "params": sum(t.numel() for t in tree_leaves(state.params))}
+
+
+def _train_line(p, height) -> str:
+    """A mined block as examples/torch_chain_train_model.py prints it."""
+    return (f"height {height} [model_train] miner=node{p.origin} "
+            f"step={p.train_height} loss={p.loss:.4f} "
+            f"digest={p.state_digest[:16]}…")
+
+
+def model_train_path(dev) -> dict:
+    """Proof-of-useful-work training of pnpcoin-demo through ``Node``, as
+    ``examples/chain_train_model.py`` runs it: a 2-node ``Network`` mines
+    ``TRAIN_BLOCKS`` model_train blocks, miners alternating, each replayed
+    by the other node; node 0 is recovered from its journal; the recovered
+    node mines a private block that loses to a longer public chain (a
+    model_train and a Classic block) and reorgs onto it. Launches, from
+    the code: every block runs its 2 microsteps through the 2 layers, one
+    flash forward (training instance) and one backward a layer and
+    microstep, on the miner and again on each node that replays it: 8 of
+    each a network block, 4 a replayed block; Classic's SHA-256 launches
+    only in the reorg. Then the same blocks on the CPU port, and the
+    port's example as a process of its own."""
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.chain import ChainStore, Network, Node
+    from repro_torch.chain.workloads import ModelTrainingWorkload
+    from repro_torch.configs import get_config
+    cfg = get_config("pnpcoin-demo")
+    per_block = cfg.n_layers * TRAIN_MICRO          # on one node
+    timed = {}
+
+    def make_node(i, device, tag=None, **kw):
+        wl = ModelTrainingWorkload(cfg=cfg, seq_len=TRAIN_SEQ,
+                                   batch=TRAIN_BATCH,
+                                   block_microsteps=TRAIN_MICRO, n_miners=2,
+                                   device=device)
+        if device == dev:
+            timed[tag or f"node{i}"] = []
+            _timed_steps(wl, timed[tag or f"node{i}"])
+        return Node(node_id=i, classic_arg_bits=6, device=device,
+                    workloads={"model_train": wl}, **kw)
+
+    def chain(device):
+        store = ChainStore()
+        net = Network.create(2, node_factory=lambda i: make_node(
+            i, device, **({"store": store} if i == 0 else {})))
+        lines, block_s = [], []
+        for b in range(TRAIN_BLOCKS):
+            res = net.mine(b % 2, "model_train")
+            check(not res.rejected_by, f"model_train on {device}: peers "
+                  f"rejected block {b}: {res.rejected_by}")
+            lines.append(_train_line(res.receipt.payload,
+                                     res.receipt.record.height))
+            block_s.append(res.receipt.block_time_s)
+        return net, store, lines, block_s
+
+    split = train_step_split(dev)
+    _zero_counts()
+    t = time.perf_counter()
+    net, store, lines, block_s = chain(dev)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t
+    mined = _counts()
+    a, b = net.nodes
+    check(net.converged() and len({n.workloads["model_train"].state_digest()
+                                   for n in net.nodes}) == 1
+          and len({tuple(sorted(n.book.balances.items()))
+                   for n in net.nodes}) == 1,
+          "model_train: the nodes converged on the weights and the books")
+    want = 2 * per_block * TRAIN_BLOCKS
+    check(mined["flash_attention"] == want
+          and mined["flash_attention_bwd"] == want
+          and mined["flash_attention_tc"] == 0 and mined["sha256"] == 0
+          and mined["merkle"] == 0,
+          f"model_train chain: {want} flash forward and backward launches "
+          f"and no other, got {mined}")
+
+    _zero_counts()
+    t = time.perf_counter()
+    rec = Node.recover(store, node=make_node(0, dev, tag="recovered"))
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t
+    recovered = _counts()
+    check(rec.last_recovery.adopted_height == a.ledger.height
+          and [blk.block_hash for blk in rec.ledger.blocks]
+          == [blk.block_hash for blk in a.ledger.blocks]
+          and rec.workloads["model_train"].state_digest()
+          == a.workloads["model_train"].state_digest()
+          and rec.book.balances == a.book.balances,
+          "model_train: recovered chain, weights and books equal node 0's")
+    want = per_block * TRAIN_BLOCKS
+    check(recovered["flash_attention"] == want
+          and recovered["flash_attention_bwd"] == want,
+          f"model_train recovery: {want} launches of each, got {recovered}")
+
+    _zero_counts()
+    t = time.perf_counter()
+    rec.mine_block("model_train")
+    r5 = b.mine_block("model_train")
+    b.mine_block("classic")
+    check(rec.consider_chain(list(b.ledger.blocks), b.chain_payloads()),
+          "model_train: the recovered node adopts the longer chain")
+    torch.cuda.synchronize()
+    reorg_s = time.perf_counter() - t
+    reorged = _counts()
+    final = b.workloads["model_train"].state_digest()
+    check(rec.workloads["model_train"].round == r5.payload.train_height + 1
+          and rec.workloads["model_train"].state_digest() == final
+          and np.isfinite(r5.payload.loss),
+          "model_train: the reorg rolled the private step back, weights "
+          "equal the winning chain's")
+
+    # the same blocks on the CPU port: float training agrees within
+    # TRAIN_LOSS_TOL (the card and the CPU round differently)
+    t = time.perf_counter()
+    cpu_net = chain("cpu")
+    cpu_s = time.perf_counter() - t
+    card_losses = [p.loss for p in a.chain_payloads()]
+    cpu_losses = [p.loss for p in cpu_net[0].nodes[0].chain_payloads()]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(card_losses,
+                                                       cpu_losses))
+    check(loss_err <= TRAIN_LOSS_TOL, f"model_train: card losses "
+          f"{card_losses} within {TRAIN_LOSS_TOL} of the CPU's {cpu_losses}")
+
+    # the example as a user runs it, in a process of its own, on the card
+    t = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" /
+                             "torch_chain_train_model.py")],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+    example_s = time.perf_counter() - t
+    printed = proc.stdout.splitlines()
+    check(proc.returncode == 0 and printed and printed[-1] == "ok",
+          f"torch_chain_train_model.py: exit {proc.returncode}, "
+          f"{proc.stderr[-2000:]}")
+    check([ln for ln in printed if ln.startswith("height ")] == lines
+          and any(final[:16] in ln for ln in printed
+                  if ln.startswith("reorged")),
+          f"torch_chain_train_model.py printed the in-process chain's "
+          f"heights, losses and digests: {printed} vs {lines}")
+
+    steps_of = {tag: {step: [s for k, s in steps if k == step]
+                      for step in ("mine", "verify", "reward")}
+                for tag, steps in timed.items()}
+    return {"phase": "workloads", "part": "model_train",
+            "config": f"pnpcoin-demo ({cfg.n_layers} layers, d_model "
+                      f"{cfg.d_model}, {cfg.n_heads} heads over "
+                      f"{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, "
+                      f"vocab {cfg.vocab_size}, float32), batch "
+                      f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_MICRO} "
+                      "microsteps a block",
+            "printed": lines, "final_digest": final,
+            "block_time_s": block_s, "chain_s": chain_s,
+            "steps_s_by_node": steps_of, "recover_s": recover_s,
+            "reorg_s": reorg_s, "cpu_chain_s": cpu_s,
+            "example_process_s": example_s,
+            "card_losses": card_losses, "cpu_losses": cpu_losses,
+            "card_vs_cpu_loss_rel_err": loss_err,
+            "train_step": split, "counts_chain": mined,
+            "counts_recover": recovered, "counts_reorg": reorged,
+            "flash_launches_a_block": {"mined": per_block,
+                                       "replayed": per_block},
+            "launches": {k: mined[k] + recovered[k] + reorged[k]
+                         for k in ("sha256", "merkle", "flash_attention",
+                                   "flash_attention_bwd")}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1684,11 +2209,16 @@ def main() -> int:
               "native.stream_of names a side stream")
     check(native.stream_of(probe) == torch.cuda.current_stream().cuda_stream,
           "native.stream_of names the current stream")
+    ptxas = ptxas_usage(log)
+    for name, lines in ptxas["kernels"].items():
+        if name.startswith("flash_fwd_kernel<f32"):
+            check(all(" 0 bytes spill stores" in ln for ln in lines
+                      if "spill" in ln), f"{name}: ptxas reports no spills")
     emit({"phase": "environment", "gpu": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": build_s,
-          "ptxas": ptxas_usage(log), "sass": sass_counts(lib),
+          "ptxas": ptxas, "sass": sass_counts(lib),
           "flash_tc_resources": flash_tc_resources(),
           "counted_ops": {"compression": OPS_COMPRESSION,
                           "merkle_parent": OPS_COMPRESSION
@@ -1736,6 +2266,8 @@ def main() -> int:
     emit({"phase": "decay_scan_vs_plain", **decay})
     wkv = wkv_vs_plain(dev)
     emit({"phase": "wkv6_vs_plain", **wkv})
+    bwd = flash_bwd_vs_plain(dev)
+    emit({"phase": "flash_bwd_vs_plain", **bwd})
     flash_err = {**flash["max_abs_err"]}
     for key, err in flash_win["max_abs_err"].items():
         flash_err[key] = max(flash_err.get(key, 0.0), err)
@@ -1746,6 +2278,7 @@ def main() -> int:
     max_err["merkle"] = merkle_cases["max_abs_err"]
     max_err["decay_scan"] = decay["max_abs_err"]
     max_err["wkv6"] = wkv["max_abs_err"]
+    max_err["flash_attention_bwd"] = bwd["max_abs_err"]
     emit({"phase": "kernels_vs_plain", "sha256": sha_rows,
           "merkle": {"cases": merkle_cases["cases"], "equal": True},
           "flash_attention": {"cases": flash["cases"] + flash_win["cases"],
@@ -1756,6 +2289,9 @@ def main() -> int:
                          "tolerance": DECAY_TOL},
           "wkv6": {"cases": wkv["cases"], "within_tolerance": True,
                    "tolerance": WKV_TOL},
+          "flash_attention_bwd": {"cases": bwd["cases"],
+                                  "within_tolerance": True,
+                                  "tolerance": bwd["tolerance"]},
           "max_abs_err": max_err})
 
     # timing at the main path's shapes
@@ -1793,9 +2329,12 @@ def main() -> int:
     emit({"phase": "flash_cuda_core_float32_times", "gpu": smi, **core_f32})
     rec_times = recurrent_times(dev)
     emit({"phase": "recurrent_times", "gpu": smi, **rec_times})
+    bwd_time = flash_bwd_times(dev)
+    emit({"phase": "flash_bwd_times", "gpu": smi, **bwd_time})
     emit({"phase": "kernel_times", "gpu": smi, "sha256": sha_times,
           "merkle": merkle_time, "flash_attention": flash_time,
-          "flash_cuda_core_float32": core_f32, **rec_times})
+          "flash_cuda_core_float32": core_f32,
+          "flash_attention_bwd": bwd_time, **rec_times})
     torch.cuda.empty_cache()
 
     # -- 3. the main path at full size -------------------------------------
@@ -1893,13 +2432,14 @@ def main() -> int:
           "height": net.heights, "tip": net.tips[0],
           "seconds": time.perf_counter() - t})
 
-    # -- 5. workload families, the journal and the quickstart ---------------
+    # -- 5. workload families, the journal, the quickstart and training -----
     # each part zeroes the counts just before it and reads them just after
     paths = {}
     for name, run in (("sat", lambda: sat_path(dev)),
                       ("docking", lambda: docking_path(dev)),
                       ("journal", lambda: journal_path(dev, job)),
-                      ("quickstart", quickstart_path)):
+                      ("quickstart", quickstart_path),
+                      ("model_train", lambda: model_train_path(dev))):
         t = time.perf_counter()
         paths[name] = run()
         emit({**paths[name], "seconds": time.perf_counter() - t, "gpu": smi})
@@ -1925,6 +2465,7 @@ def main() -> int:
     for res in served.values():
         emit(res)
     emit(sha_kernels_a_call(dev))
+    emit(train_kernels_a_step(dev))
 
     # -- 7. launch counts and the kernel table -------------------------------
     # the path's launches do not depend on the kernels' speed: 21 SHA-256
@@ -1958,6 +2499,22 @@ def main() -> int:
                 **{k: times[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
                 "shape": times["shape"], "matched": True, **extra}
+    train = paths["model_train"]
+    check(train["launches"]["flash_attention_bwd"] > 0,
+          "the flash backward launched on the training path")
+    bwd_row = row("flash_attention_bwd", "flash_attention_bwd",
+                  "flash_attention_bwd.cu", "", train["launches"][
+                      "flash_attention_bwd"], bwd_time["qwen3-0.6b"],
+                  pnpcoin_demo_shape=bwd_time["pnpcoin-demo"],
+                  device_ms_from_graph=bwd_time["qwen3-0.6b"][
+                      "device_ms_from_graph"],
+                  path="training pnpcoin-demo (one launch a layer and "
+                       "microstep, two kernels each); times at qwen3-0.6b's "
+                       "shape in float32",
+                  replaces_note="no TPU kernel: the reference "
+                                "differentiates chunked_attention "
+                                "(jax.grad)")
+    bwd_row["replaces"] = "src/repro/models/attention.py:79"
     emit({"kernels": [
         row("sha256_rows", "sha256", "sha256.cu", "sha256.py:34",
             counts["sha256"], {**chunk, "library_ms": None}, path="mining",
@@ -1984,8 +2541,13 @@ def main() -> int:
                 "qwen3-0.6b": qwen["flash_attention_tc"],
                 "recurrentgemma-2b": rg["flash_attention_tc"]}),
         row("flash_attention_fwd", "flash_attention", "flash_attention.cu",
-            "flash_attention.py:28", sum(small_flash.values()),
+            "flash_attention.py:28", sum(small_flash.values())
+            + train["launches"]["flash_attention"],
             core_f32["qwen3-0.6b"],
+            training_instance={
+                key: {"ms": t["forward_training_instance_ms"],
+                      "serving_instance_ms": t["forward_serving_instance_ms"]}
+                for key, t in bwd_time.items()},
             pnpcoin_demo_shape=core_f32["pnpcoin-demo"],
             tile={f"hd={hd}": flash_attention.tile(hd)
                   for hd in flash_attention.HEAD_DIMS},
@@ -1993,9 +2555,12 @@ def main() -> int:
                 "qwen3-0.6b": at(flash_time, "cuda_core"),
                 "recurrentgemma-2b": at(flash_rg, "cuda_core")},
             path="float32 (and hd 32): the reduced float32 qwen3-0.6b (2) "
-                 "and recurrentgemma-2b (1) served, pnpcoin-demo; times in "
-                 "float32 against SDPA in float32",
-            launches_by_path=small_flash),
+                 "and recurrentgemma-2b (1) served, pnpcoin-demo trained "
+                 "(its training instance, which saves the row "
+                 "log-sum-exp); times in float32 against SDPA in float32",
+            launches_by_path={**small_flash, "model_train": train[
+                "launches"]["flash_attention"]}),
+        bwd_row,
         row("decay_scan", "decay_scan", "decay_scan.cu", "decay_scan.py:21",
             rg["decay_scan"], rec_times["decay_scan"],
             path="serving recurrentgemma-2b"),

@@ -1,5 +1,5 @@
 """``repro_torch.chain.workloads`` — the application workload suite,
-ported from ``repro.chain.workloads`` for its integer families:
+ported from ``repro.chain.workloads``:
 
 * ``SatWorkload`` — §1 "brute-force theorem proving": exhaustive 3-CNF
   decision, with a committed satisfiability certificate that verifiers
@@ -8,12 +8,15 @@ ported from ``repro.chain.workloads`` for its integer families:
 * ``DockingWorkload`` — the §4 walkthrough, with the data-bundle
   checksum bound into consensus: a peer holding tampered tables
   rejects honest blocks and vice versa.
+* ``ModelTrainingWorkload`` — real-model proof-of-useful-work: each
+  block is a few training steps of a transformer (``pnpcoin-demo`` by
+  default), verified by re-execution on the verifier's own state.
 
-Both mine in full mode, so every block runs the SHA-256 kernel over its
-chunks and the Merkle reduction for its commit. The reference's other
-two families, ``gan`` (GAN inversion) and ``model_train`` (real-model
-training), draw from ``jax.random``'s threefry stream and come with the
-port's training slice.
+SAT and docking mine in full mode, so every block runs the SHA-256
+kernel over its chunks and the Merkle reduction for its commit; a
+training block runs the flash-attention forward and backward kernels.
+The reference's ``gan`` family (GAN inversion) is not ported yet
+(ROADMAP.md §1, item 3).
 
 ``default_suite`` builds one fresh instance of each ported family
 (every node needs its own objects — sharing an instance across nodes
@@ -25,6 +28,9 @@ from typing import Dict
 from repro_torch.chain.workload import Workload
 from repro_torch.chain.workloads.docking import (DockingBundle,
                                                  DockingWorkload)
+from repro_torch.chain.workloads.model_train import (MICRO_CONFIG,
+                                                     MICRO_KWARGS,
+                                                     ModelTrainingWorkload)
 from repro_torch.chain.workloads.sat import Cnf3, SatWorkload, random_cnf3
 from repro_torch.device import DeviceLike
 
@@ -32,6 +38,9 @@ __all__ = [
     "Cnf3",
     "DockingBundle",
     "DockingWorkload",
+    "MICRO_CONFIG",
+    "MICRO_KWARGS",
+    "ModelTrainingWorkload",
     "SatWorkload",
     "WORKLOAD_FAMILIES",
     "default_suite",
@@ -43,10 +52,11 @@ __all__ = [
 WORKLOAD_FAMILIES = {
     SatWorkload.name: SatWorkload,
     DockingWorkload.name: DockingWorkload,
+    ModelTrainingWorkload.name: ModelTrainingWorkload,
 }
 
 # the reference's families that are not ported yet
-_NOT_PORTED = ("gan", "model_train")
+_NOT_PORTED = ("gan",)
 
 
 def default_suite(seed: int = 0, device: DeviceLike = None,
@@ -61,8 +71,8 @@ def default_suite(seed: int = 0, device: DeviceLike = None,
     if unknown:
         raise ValueError(
             f"no ported workload family {unknown} (have "
-            f"{sorted(WORKLOAD_FAMILIES)}; {', '.join(_NOT_PORTED)} come "
-            "with the training slice)")
+            f"{sorted(WORKLOAD_FAMILIES)}; {', '.join(_NOT_PORTED)} is not "
+            "ported yet: ROADMAP.md §1, item 3)")
     suite: Dict[str, Workload] = {}
     for name, cls in WORKLOAD_FAMILIES.items():
         kwargs = dict(overrides.get(name, ()))

@@ -56,6 +56,10 @@
 // - one block owns each output row and reduces its keys in a fixed order
 //   (fixed shuffle trees, no atomics), so the output is the same bits from
 //   launch to launch.
+// The instance with LSE = true (float32 at hd 32, 64 and 128, the training
+// forward) also writes each row's log-sum-exp of its scaled scores, float32
+// (B, H, S) in natural-log units, for the backward (flash_attention_bwd.cu);
+// the serving instances (LSE = false) compile without that store.
 // bfloat16 inputs are staged through registers (converted to float32 on
 // the way into shared memory) at the same points of the pipeline.
 // WARPS, BK and STAGES for hd <= 128 are the fastest in chip_probes.py's
@@ -211,11 +215,12 @@ __device__ __forceinline__ float lane_of(const float4& x, int i) {
 // score tile and columns VW tx + 16 VW c (c < VC) of the output. The 8
 // lanes of a quarter-warp share their rows (one address for each Q or P
 // load, a broadcast) and read 8 neighbouring keys or column groups.
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(Tile<HD>::THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int T_len,
-                 int H, int Kv, int causal, int window, float scale_log2) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int T_len, int H, int Kv,
+                 int causal, int window, float scale_log2) {
     using C = Tile<HD>;
     constexpr int TM = C::TM, TN = C::TN, VW = C::VW, VC = C::VC;
     constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, PS = C::PS, PK = C::PK;
@@ -419,6 +424,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < TM; ++i) {
         const int qp = q0 + row0 + 2 * i;
         if (qp >= S) continue;
+        if constexpr (LSE) {
+            // m and l are the row's own on all 16 of its lanes; in the log2
+            // domain the row's log-sum-exp is m + log2 l
+            if (tx == 0)
+                lse[((size_t)b * H + h) * S + qp] =
+                    (m[i] + log2f(l[i])) * (1.f / LOG2E);
+        }
         const float inv = 1.f / fmaxf(l[i], 1e-20f);
         T* dst = o + ((size_t)b * S + qp) * q_stride + (size_t)h * HD + VW * tx;
 #pragma unroll
@@ -431,20 +443,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE = false>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int64_t S, int64_t T_len, int H, int Kv, int causal, int window,
-           cudaStream_t stream) {
+           cudaStream_t stream, float* lse = nullptr) {
     using C = Tile<HD>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::SMEM);
+        flash_fwd_kernel<T, HD, LSE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned int)((S + C::BQ - 1) / C::BQ), (unsigned int)H,
                     (unsigned int)B);
-    flash_fwd_kernel<T, HD><<<grid, C::THREADS, C::SMEM, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, (int)S, (int)T_len, H,
-        Kv, causal, window, LOG2E / sqrtf((float)HD));
+    flash_fwd_kernel<T, HD, LSE><<<grid, C::THREADS, C::SMEM, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, (int)S,
+        (int)T_len, H, Kv, causal, window, LOG2E / sqrtf((float)HD));
     return (int)cudaGetLastError();
 }
 
@@ -465,7 +477,8 @@ template <int HD>
 int info(int32_t* out) {
     using C = Tile<HD>;
     cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<float, HD>);
+    const cudaError_t err =
+        cudaFuncGetAttributes(&attr, flash_fwd_kernel<float, HD, false>);
     if (err != cudaSuccess) return (int)err;
     out[0] = C::BQ;
     out[1] = C::BK;
@@ -514,4 +527,27 @@ extern "C" int pnp_flash_attention_fwd(const void* q, const void* k,
         return launch_hd<__nv_bfloat16>(q, k, v, out, B, S, T, H, Kv, hd, causal,
                                         window, st);
     return (int)cudaErrorInvalidValue;
+}
+
+// The training forward: as pnp_flash_attention_fwd on float32 at hd 32, 64
+// or 128, and also each row's log-sum-exp of its scaled scores into lse,
+// float32 (B, H, S), natural-log units.
+extern "C" int pnp_flash_attention_fwd_lse(const void* q, const void* k,
+                                           const void* v, void* out,
+                                           void* lse, int64_t B, int64_t S,
+                                           int64_t T, int32_t H, int32_t Kv,
+                                           int32_t hd, int32_t causal,
+                                           int32_t window, void* stream) {
+    if (B < 0 || S < 0 || T < 1 || H < 1 || Kv < 1 || H % Kv || window < 0 ||
+        S > INT32_MAX || T > INT32_MAX || B > 65535 || H > 65535)
+        return (int)cudaErrorInvalidValue;
+    if (B == 0 || S == 0) return 0;
+    const cudaStream_t st = (cudaStream_t)stream;
+    float* l = (float*)lse;
+    switch (hd) {
+        case 32: return launch<float, 32, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
+        case 64: return launch<float, 64, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
+        case 128: return launch<float, 128, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

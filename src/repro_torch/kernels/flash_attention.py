@@ -12,14 +12,22 @@ themselves. ``csrc/flash_attention_tc.cu`` runs bfloat16 at head dims 64,
 alone; there is no fallback from one kernel to the other.
 ``kernels/ops.py`` sends CUDA tensors here and CPU tensors to
 ``ref.flash_attention_ref``.
+
+For training, ``FlashAttention`` is the autograd Function over the
+CUDA-core kernel in float32: its forward launches the kernel's instance
+that also saves each row's log-sum-exp (``flash_attention_lse_cuda``), and
+its backward launches the hand-written backward
+(``flash_attention_bwd.flash_attention_bwd_cuda``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import flash_attention_tc, native
+from repro_torch.kernels import flash_attention_bwd, flash_attention_tc, native
 
 HEAD_DIMS = (32, 64, 128, 256)
+# the training instance (with the row log-sum-exp) and the backward
+TRAIN_HEAD_DIMS = flash_attention_bwd.HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the CUDA-core kernel since the last reset (a run shows its
@@ -84,3 +92,58 @@ def flash_attention_cuda_core(q: torch.Tensor, k: torch.Tensor,
         launches += 1
         native.check_launch("flash_attention_cuda_core", rc)
     return out
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool,
+                             window: int = 0):
+    """The CUDA-core kernel's training instance: float32 q (B, S, H, hd), k,
+    v (B, T, Kv, hd) with hd in ``TRAIN_HEAD_DIMS`` -> (out (B, S, H, hd),
+    lse (B, H, S)), lse each row's log-sum-exp of its scaled, masked scores
+    in natural-log units. The output is the serving instance's, bit for
+    bit."""
+    global launches
+    native.check_qkv("flash_attention_lse_cuda", q, k, v, window,
+                     {torch.float32: 0}, TRAIN_HEAD_DIMS)
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if B and S:
+        with torch.cuda.device(q.device):
+            rc = native.library().pnp_flash_attention_fwd_lse(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, S, T, H, Kv, hd, int(causal), int(window),
+                native.stream_of(q))
+        launches += 1
+        native.check_launch("flash_attention_lse_cuda", rc)
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient on the card: the forward is the CUDA-core
+    kernel's training instance, the backward the hand-written backward
+    kernel on the saved q, k, v, output and row log-sum-exp. float32 at
+    head dims 32, 64 and 128; bfloat16 raises (bf16 training waits for a
+    tensor-core backward, ROADMAP.md §1, item 4)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        if q.dtype != torch.float32:
+            raise TypeError(
+                f"flash attention with grad: {q.dtype} is not trained on "
+                "the card; float32 only (bf16 training: ROADMAP.md §1, "
+                "item 4)")
+        out, lse = flash_attention_lse_cuda(q, k, v, causal=causal,
+                                            window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd.flash_attention_bwd_cuda(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None

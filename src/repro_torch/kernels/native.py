@@ -112,6 +112,14 @@ def library() -> ctypes.CDLL:
     lib.pnp_flash_attention_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,
                                             i32, i32, i32, i32, i32, i32, vp]
     lib.pnp_flash_attention_fwd.restype = ctypes.c_int
+    lib.pnp_flash_attention_fwd_lse.argtypes = [vp, vp, vp, vp, vp, i64,
+                                                i64, i64, i32, i32, i32, i32,
+                                                i32, vp]
+    lib.pnp_flash_attention_fwd_lse.restype = ctypes.c_int
+    lib.pnp_flash_attention_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                            vp, vp, i64, i64, i64, i32, i32,
+                                            i32, i32, i32, vp]
+    lib.pnp_flash_attention_bwd.restype = ctypes.c_int
     lib.pnp_flash_attention_info.argtypes = [i32, vp]
     lib.pnp_flash_attention_info.restype = ctypes.c_int
     lib.pnp_flash_attention_tc_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,

@@ -9,7 +9,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decay_scan import decay_scan_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.sha256 import sha256_rows_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
 
@@ -44,8 +45,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, hd); k, v: (B, T, Kv, hd) -> (B, S, H, hd) in q's dtype.
     Softmax attention with scores scaled by 1/sqrt(hd); GQA maps query head
     h to KV head h // (H // Kv); ``window > 0`` lets query s see only keys
-    t > s - window."""
+    t > s - window.
+
+    On the card, when grad mode is on and q, k or v requires grad, the
+    training Function (the forward instance that saves the row log-sum-exp,
+    and the hand-written backward) runs; otherwise the serving kernel. On
+    the CPU autograd differentiates the plain version."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     _cpu_only("flash_attention", q)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

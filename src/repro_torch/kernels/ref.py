@@ -8,7 +8,9 @@ truth both are checked against.
 
 ``flash_attention_ref`` is the function of the reference's Pallas flash
 kernel and of ``repro.models.attention.chunked_attention``, written out
-plainly in float32. ``decay_scan_ref`` and ``wkv6_ref`` are the
+plainly in float32; ``flash_attention_lse_ref`` its rows' log-sum-exp,
+and ``flash_attention_bwd_ref`` its gradients, step by step as the
+backward kernel computes them. ``decay_scan_ref`` and ``wkv6_ref`` are the
 reference's recurrences (``repro/kernels/ref.py``) as sequential loops
 over time in float32.
 """
@@ -134,6 +136,66 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.masked_fill(~keep, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bthd->bshd", probs, vf).to(q.dtype)
+
+
+def _scores_keep(q, k, causal: bool, window: int):
+    """Scaled scores (B, H, S, T) in float32, K repeated over each KV
+    head's query heads, and the mask's keep (S, T)."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    if H % Kv:
+        raise ValueError(f"flash attention: {H} heads over {Kv} KV heads")
+    kf = k.float().repeat_interleave(H // Kv, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), kf) / hd ** 0.5
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(T, device=q.device)[None, :]
+    keep = torch.ones(S, T, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kp <= qp
+    if window:
+        keep &= kp > qp - window
+    return scores, keep
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool,
+                            window: int = 0) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled, masked scores: float32 (B, H,
+    S), natural-log units (what the training forward instance saves)."""
+    scores, keep = _scores_keep(q, k, causal, window)
+    return torch.logsumexp(scores.masked_fill(~keep, NEG_INF), dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool, window: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """dq, dk, dv of ``flash_attention_ref`` at output ``o`` with row
+    log-sum-exp ``lse`` (B, H, S) and output gradient ``do``, float32, in
+    the backward kernel's steps: D = rowsum(do * o); P = exp(scores - lse)
+    under the mask; dV = P^T dO; dP = dO V^T; dS = P (dP - D); dQ = dS K /
+    sqrt(hd); dK = dS^T Q / sqrt(hd); dK and dV summed over each KV head's
+    query heads."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    g = H // Kv
+    scores, keep = _scores_keep(q, k, causal, window)
+    p = torch.where(keep, torch.exp(scores - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    q32, o32, do32 = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    d = (do32 * o32).sum(-1).transpose(1, 2)                   # (B, H, S)
+    dv = torch.einsum("bhst,bshd->bthd", p, do32)
+    dp = torch.einsum("bshd,bthd->bhst", do32, vf)
+    ds = p * (dp - d[..., None])
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf) / hd ** 0.5
+    dk = torch.einsum("bhst,bshd->bthd", ds, q32) / hd ** 0.5
+    dk = dk.reshape(B, T, Kv, g, hd).sum(3)
+    dv = dv.reshape(B, T, Kv, g, hd).sum(3)
+    return dq, dk, dv
 
 
 def decay_scan_ref(a: torch.Tensor, b: torch.Tensor,

@@ -1,8 +1,11 @@
-"""Attention: the port of ``repro/models/attention.py`` for serving.
+"""Attention: the port of ``repro/models/attention.py`` for training and
+serving.
 
-GQA + qk-norm + rope. Prefill runs causal attention, optionally within a
-local window, through ``kernels.ops.flash_attention`` (the hand-written
-kernel on the card) and fills the KV cache; decode attends one token over
+GQA + qk-norm + rope. ``self_attention`` (the training forward, no cache)
+and prefill run causal attention, optionally within a local window,
+through ``kernels.ops.flash_attention`` (the hand-written kernel on the
+card, whose backward is a hand-written kernel too); prefill also fills
+the KV cache; decode attends one token over
 the ring cache in plain PyTorch, as the reference does in plain jnp. One
 card has no sharding, so the reference's ``constrain`` calls are dropped.
 
@@ -18,31 +21,33 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (apply_rope, dense_init, head_rms_norm,
+from repro_torch.models.layers import (Rng, apply_rope, dense_init,
+                                       head_rms_norm, rng_device, split_rng,
                                        stacked_dense_init)
 
 NEG_INF = -1e9
 
 
-def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
+def init_attention(rng: Rng, d: int, n_heads: int, n_kv: int,
                    head_dim: int, dtype, qk_norm: bool = False,
                    n_stack: int = 0) -> Dict:
+    ks = split_rng(rng, 4)
     if n_stack:
-        def mk(i, o):
-            return stacked_dense_init(gen, n_stack, i, o, dtype)
+        def mk(k, i, o):
+            return stacked_dense_init(k, n_stack, i, o, dtype)
     else:
-        def mk(i, o):
-            return dense_init(gen, i, o, dtype)
-    p = {"wq": mk(d, n_heads * head_dim),
-         "wk": mk(d, n_kv * head_dim),
-         "wv": mk(d, n_kv * head_dim),
-         "wo": mk(n_heads * head_dim, d)}
+        def mk(k, i, o):
+            return dense_init(k, i, o, dtype)
+    p = {"wq": mk(ks[0], d, n_heads * head_dim),
+         "wk": mk(ks[1], d, n_kv * head_dim),
+         "wv": mk(ks[2], d, n_kv * head_dim),
+         "wo": mk(ks[3], n_heads * head_dim, d)}
     if qk_norm:
         shape = (n_stack, head_dim) if n_stack else (head_dim,)
         p["q_norm"] = torch.zeros(shape, dtype=torch.float32,
-                                  device=gen.device)
+                                  device=rng_device(rng))
         p["k_norm"] = torch.zeros(shape, dtype=torch.float32,
-                                  device=gen.device)
+                                  device=rng_device(rng))
     return p
 
 
@@ -65,6 +70,22 @@ def _project_qkv(p, x, n_heads, n_kv, hd, qk_norm):
         q = head_rms_norm(q, p["q_norm"])
         k = head_rms_norm(k, p["k_norm"])
     return q, k, v
+
+
+def self_attention(p: Dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
+                   head_dim: int, rope_theta: float, causal: bool = True,
+                   window: int = 0, qk_norm: bool = False) -> torch.Tensor:
+    """The training and evaluation forward: attention over the whole
+    sequence with no cache. On the card, with grad on, the flash kernel
+    saves its row log-sum-exp and the backward kernel gives q, k and v
+    their gradients."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm)
+    positions = torch.arange(S, device=x.device)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return out.reshape(B, S, n_heads * head_dim) @ p["wo"]
 
 
 def prefill_self_attention(p: Dict, x: torch.Tensor, cache: Dict, *,

@@ -1,18 +1,27 @@
 """Shared building blocks: the port of ``repro/models/layers.py``.
 
 Params are plain dicts of tensors with the reference's keys, shapes and
-dtypes. Initialisers draw from an explicit ``torch.Generator`` and make
-their tensors on its device. They do not reproduce ``jax.random``'s
-numbers: weights that must equal the reference's are converted from it
-(``repro_torch.convert.params_from_jax``).
+dtypes. Initialisers take either a ``torch.Generator`` or a key of
+``repro_torch.random`` (the port's copy of ``jax.random``'s threefry
+stream). With a generator they draw ``torch.randn`` on its device, which
+is quick at any size (serving at 7B); with a key they draw the
+reference's numbers on the host CPU, splitting the key as the reference
+does, so a model initialised from ``random.key(seed)`` starts from the
+weights the reference's ``Model.init(jax.random.key(seed))`` gives (within
+``random.normal``'s last bits).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Union
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch import random
 
 Params = Dict[str, Any]
+# a torch.Generator, or a (2,) int64 threefry key of ``repro_torch.random``
+Rng = Union[torch.Generator, torch.Tensor]
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -24,25 +33,46 @@ def compute_dtype(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
+def rng_device(rng: Rng) -> torch.device:
+    """Where an initialiser makes its tensors: the generator's device, or
+    the CPU for a threefry key."""
+    if isinstance(rng, torch.Generator):
+        return rng.device
+    return torch.device("cpu")
+
+
+def split_rng(rng: Rng, n: int) -> List[Rng]:
+    """``n`` sources for ``n`` draws in turn: a key split as
+    ``jax.random.split(key, n)`` splits it, or the same generator ``n``
+    times."""
+    if isinstance(rng, torch.Generator):
+        return [rng] * n
+    return list(random.split(rng, n))
+
+
+def _normal(rng: Rng, shape, std: float, dtype) -> torch.Tensor:
+    if isinstance(rng, torch.Generator):
+        x = torch.randn(shape, generator=rng, device=rng.device,
+                        dtype=torch.float32)
+    else:
+        # the reference multiplies in float32 by its scale rounded to
+        # float32
+        x = random.normal(rng, shape)
+        std = torch.tensor(std, dtype=torch.float32)
     return (x * std).to(dtype)
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               dtype) -> torch.Tensor:
-    return _normal(gen, (d_in, d_out), d_in ** -0.5, dtype)
+def dense_init(rng: Rng, d_in: int, d_out: int, dtype) -> torch.Tensor:
+    return _normal(rng, (d_in, d_out), d_in ** -0.5, dtype)
 
 
-def stacked_dense_init(gen: torch.Generator, n: int, d_in: int, d_out: int,
+def stacked_dense_init(rng: Rng, n: int, d_in: int, d_out: int,
                        dtype) -> torch.Tensor:
-    return _normal(gen, (n, d_in, d_out), d_in ** -0.5, dtype)
+    return _normal(rng, (n, d_in, d_out), d_in ** -0.5, dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int,
-               dtype) -> torch.Tensor:
-    return _normal(gen, (vocab, d), 0.02, dtype)
+def embed_init(rng: Rng, vocab: int, d: int, dtype) -> torch.Tensor:
+    return _normal(rng, (vocab, d), 0.02, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -101,17 +131,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, d: int, f: int, dtype,
-             n_stack: int = 0) -> Params:
+def init_mlp(rng: Rng, d: int, f: int, dtype, n_stack: int = 0) -> Params:
+    k1, k2, k3 = split_rng(rng, 3)
     if n_stack:
-        return {"w1": stacked_dense_init(gen, n_stack, d, f, dtype),
-                "w3": stacked_dense_init(gen, n_stack, d, f, dtype),
-                "w2": stacked_dense_init(gen, n_stack, f, d, dtype)}
-    return {"w1": dense_init(gen, d, f, dtype),
-            "w3": dense_init(gen, d, f, dtype),
-            "w2": dense_init(gen, f, d, dtype)}
+        return {"w1": stacked_dense_init(k1, n_stack, d, f, dtype),
+                "w3": stacked_dense_init(k2, n_stack, d, f, dtype),
+                "w2": stacked_dense_init(k3, n_stack, f, d, dtype)}
+    return {"w1": dense_init(k1, d, f, dtype),
+            "w3": dense_init(k2, d, f, dtype),
+            "w2": dense_init(k3, f, d, dtype)}
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean next-token CE in float32; positions with label < 0 are masked,
+    and logits at or past ``vocab_size`` (the padded vocab) never count.
+    The gold logit is picked by a one-hot product, whose backward is a
+    plain product too: no scatter, so the same bits on every run."""
+    v_pad = logits.shape[-1]
+    logits = logits.float()
+    if v_pad != vocab_size:
+        keep = torch.arange(v_pad, device=logits.device) < vocab_size
+        logits = torch.where(keep, logits, -1e9)
+    logz = torch.logsumexp(logits, dim=-1)
+    labels = labels.to(logits.device)
+    pick = F.one_hot(labels.clamp(min=0).long(), v_pad).to(logits.dtype)
+    gold = (logits * pick).sum(dim=-1)
+    valid = (labels >= 0).float()
+    return (logz - gold).mul(valid).sum() / valid.sum().clamp(min=1.0)

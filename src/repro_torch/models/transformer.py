@@ -1,5 +1,6 @@
 """Decoder-only model assembly: the dense, hybrid and ssm paths of
-``repro/models/transformer.py``, for serving.
+``repro/models/transformer.py``, for serving, and the dense family's
+training forward and loss.
 
 Params and caches keep the reference's layout, so weights converted from
 it drop in: ``groups/l{j}`` holds the j-th kind of layer of the repeating
@@ -7,9 +8,12 @@ pattern, stacked over ``n_groups`` (dense: one ``attn``; ssm: one
 ``rwkv``; recurrentgemma: ``rec, rec, attn``), and ``rest{r}`` the
 unstacked layers left after the last whole group. Layers run as a Python
 loop over the stack (the reference scans it). The moe, encdec and vlm
-families raise ``NotImplementedError``.
+families raise ``NotImplementedError``, and so do ``forward`` and ``loss``
+of the hybrid and ssm families, and ``init`` from a threefry key for them.
 
-    init(gen)                          -> params
+    init(rng)                          -> params
+    forward(params, batch)             -> (logits, aux)       # teacher-forced
+    loss(params, batch)                -> (loss, {"ce", "aux"})
     init_cache(batch, cache_len)       -> cache
     prefill(params, batch, cache)      -> (logits of the last token, cache)
     decode_step(params, batch, cache)  -> (logits, cache)     # one token
@@ -22,13 +26,16 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch import random
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.layers import (compute_dtype, embed_init, init_mlp,
-                                       mlp, rms_norm)
+from repro_torch.models.layers import (Rng, compute_dtype, cross_entropy,
+                                       embed_init, init_mlp, mlp, rms_norm,
+                                       rng_device, split_rng)
 
 Params = Dict[str, Any]
 
@@ -52,16 +59,16 @@ def _zeros(shape, n_stack, device):
 # ---------------------------------------------------------------------------
 
 
-def _init_attn_layer(gen: torch.Generator, cfg: ModelConfig,
-                     n_stack: int) -> Params:
+def _init_attn_layer(rng: Rng, cfg: ModelConfig, n_stack: int) -> Params:
     dt = compute_dtype(cfg)
+    k1, k2 = split_rng(rng, 2)
     return {
-        "ln1": _zeros((cfg.d_model,), n_stack, gen.device),
-        "ln2": _zeros((cfg.d_model,), n_stack, gen.device),
-        "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads,
+        "ln1": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "ln2": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "attn": attn.init_attention(k1, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.resolved_head_dim,
                                     dt, cfg.qk_norm, n_stack),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, n_stack),
+        "mlp": init_mlp(k2, cfg.d_model, cfg.d_ff, dt, n_stack),
     }
 
 
@@ -139,6 +146,16 @@ def _apply_rwkv_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + out2
 
 
+def _train_attn_layer(lp: Params, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"])
+    x = x + attn.self_attention(
+        lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        window=cfg.window, qk_norm=cfg.qk_norm)
+    return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]))
+
+
 _SUBLAYER = {"attn": _apply_attn_layer, "rec": _apply_rec_layer,
              "rwkv": _apply_rwkv_layer}
 _SUBINIT = {"attn": _init_attn_layer, "rec": _init_rec_layer,
@@ -190,32 +207,76 @@ class Model:
         self.n_groups = cfg.n_layers // len(pat)
         self.n_rest = cfg.n_layers - self.n_groups * len(pat)
 
+    def _dense_only(self, what: str) -> None:
+        if any(kind != "attn" for kind in self.pattern):
+            raise NotImplementedError(
+                f"{what} of the {self.cfg.family} family: ROADMAP.md §1, "
+                "the training slice covers the dense family")
+
     # -- init ---------------------------------------------------------------
-    def init(self, gen: torch.Generator) -> Params:
-        """Random params on ``gen``'s device, in the reference's layout."""
+    def init(self, rng: Rng) -> Params:
+        """Random params in the reference's layout: from a generator, on
+        its device; from a threefry key of ``repro_torch.random``, the
+        reference's draws (its ``split(key, 8)`` and ``fold_in`` tree), on
+        the CPU."""
         cfg = self.cfg
         dt = compute_dtype(cfg)
+        if not isinstance(rng, torch.Generator):
+            self._dense_only("init from a threefry key")
+
+        def fold(k, data):
+            return k if isinstance(k, torch.Generator) else \
+                random.fold_in(k, data)
+        keys = split_rng(rng, 8)
         p: Params = {
-            "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
+            "embed": embed_init(keys[0], cfg.padded_vocab, cfg.d_model, dt),
             "ln_f": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                device=gen.device),
+                                device=rng_device(rng)),
         }
         if not cfg.tie_embeddings:
-            p["unembed"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dt)
-        p["groups"] = {f"l{j}": _SUBINIT[kind](gen, cfg, self.n_groups)
+            p["unembed"] = embed_init(keys[1], cfg.padded_vocab, cfg.d_model,
+                                      dt)
+        p["groups"] = {f"l{j}": _SUBINIT[kind](fold(keys[2], j), cfg,
+                                               self.n_groups)
                        for j, kind in enumerate(self.pattern)}
         for r in range(self.n_rest):
-            p[f"rest{r}"] = _SUBINIT[self.pattern[r]](gen, cfg, 0)
+            p[f"rest{r}"] = _SUBINIT[self.pattern[r]](fold(keys[3], r), cfg,
+                                                      0)
         return p
 
     # -- embedding / head -----------------------------------------------------
     def _embed(self, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return p["embed"][tokens.long()].to(compute_dtype(self.cfg))
+        # F.embedding's backward gives the same bits on every run on the
+        # card (two fresh training workloads agree bit for bit,
+        # tests/test_torch_cuda.py)
+        tokens = tokens.to(p["embed"].device).long()
+        return F.embedding(tokens, p["embed"]).to(compute_dtype(self.cfg))
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, p["ln_f"])
         table = p["embed"] if self.cfg.tie_embeddings else p["unembed"]
         return x @ table.T
+
+    # -- train forward --------------------------------------------------------
+    def forward(self, p: Params, batch: Dict):
+        """Teacher-forced logits (B, S, padded vocab) and the router aux
+        (float32 0.0 for the dense family)."""
+        self._dense_only("the training forward")
+        cfg = self.cfg
+        x = self._embed(p, batch["tokens"])
+        for i in range(self.n_groups):
+            gp = _index(p["groups"], i)
+            for j in range(len(self.pattern)):
+                x = _train_attn_layer(gp[f"l{j}"], x, cfg)
+        for r in range(self.n_rest):
+            x = _train_attn_layer(p[f"rest{r}"], x, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._head(p, x), aux
+
+    def loss(self, p: Params, batch: Dict):
+        logits, aux = self.forward(p, batch)
+        ce = cross_entropy(logits, batch["labels"], self.cfg.vocab_size)
+        return ce + self.cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     # -- cache ----------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, device=None) -> Dict:

@@ -1,0 +1,184 @@
+"""``jax.random``'s threefry2x32 stream, for the draws the reference makes.
+
+The reference draws its token batches (``data/pipeline.py``) and its
+initial weights (``models/*.py``) from ``jax.random`` keys. A port node
+that trains the same chain must start from the same bits, so this module
+computes the same functions on the host CPU, whatever device the node
+trains on:
+
+    key(seed)             -> key (the words of ``jax.random.key(seed)``)
+    split(key, num)       -> (num, 2) keys
+    fold_in(key, data)    -> key
+    bits(key, shape)      -> uint32 words (as int64)
+    randint(key, shape, minval, maxval)  -> int32
+    uniform(key, shape, minval, maxval)  -> float32
+    bernoulli(key, p, shape)             -> bool
+    normal(key, shape)                   -> float32
+
+A key is an int64 tensor of shape (2,) holding two 32-bit words. Words
+live in int64 and are masked to 32 bits after every operation that can
+carry past them, since torch's uint32 lacks shifts, adds and remainders.
+
+The stream is the one JAX draws with ``jax_threefry_partitionable=True``
+(the default of the JAX releases the reference's tests run on; older
+releases defaulted to False and split and draw bits differently): each
+element's counter is its flat index as a 64-bit (hi, lo) pair, and 32
+random bits are the xor of threefry's two output words. ``split`` and
+every integer draw equal JAX's bit for bit. ``normal`` is
+``sqrt(2) * erf_inv(u)`` on the same uniform ``u``; ``erf_inv`` is XLA's
+float32 polynomial (M. Giles' approximation), so a value may differ from
+JAX's in its last bits where the two libraries' ``log1p`` rounds
+differently: over 200,000 draws about 1% of the values differ, by at most
+4.8e-7 (``tests/test_torch_train.py`` states the worst it finds).
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple, Union
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+Shape = Union[int, Sequence[int]]
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _shape(shape: Shape) -> Tuple[int, ...]:
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(k1: int, k2: int, x1: torch.Tensor,
+                 x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 with 20 rounds of counter words (x1, x2) under key
+    (k1, k2): the two output words, as int64 holding 32 bits."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK32
+    x2 = (x2 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK32
+            x2 = x1 ^ _rotl(x2, r)
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x1, x2
+
+
+def _words(key: torch.Tensor) -> Tuple[int, int]:
+    if tuple(key.shape) != (2,):
+        raise ValueError(f"a key is two words, got shape {tuple(key.shape)}")
+    return int(key[0]), int(key[1])
+
+
+def _counters(shape: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each element's flat index as (hi, lo) 32-bit words."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64)
+    return (idx >> 32).reshape(shape), (idx & MASK32).reshape(shape)
+
+
+def key(seed: int) -> torch.Tensor:
+    """The words of ``jax.random.key(seed)`` as JAX makes them with 64-bit
+    types off (its default): the seed taken as a 32-bit integer, so a high
+    word of 0 and the seed's low 32 bits."""
+    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64)
+
+
+def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
+    """``jax.random.split``: keys of shape ``(*num, 2)``."""
+    shape = _shape(num)
+    b1, b2 = threefry2x32(*_words(key), *_counters(shape))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: the key hashed with ``data``'s low 32 bits
+    as the counter (0, data)."""
+    zero = torch.zeros(1, dtype=torch.int64)
+    b1, b2 = threefry2x32(*_words(key), zero, zero + (int(data) & MASK32))
+    return torch.cat([b1, b2])
+
+
+def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.bits`` at 32 bits: uint32 words as int64."""
+    b1, b2 = threefry2x32(*_words(key), *_counters(_shape(shape)))
+    return b1 ^ b2
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` for int32, minval <= x < maxval: two words of
+    bits an element, reduced modulo the span as JAX does (its small bias
+    included)."""
+    if not (-2**31 <= minval and maxval <= 2**31 - 1):
+        raise ValueError("randint: bounds outside int32")
+    shape = _shape(shape)
+    k1, k2 = split(key)
+    hi, lo = bits(k1, shape), bits(k2, shape)
+    span = max(maxval - minval, 1) & MASK32
+    mult = (2**16 % span) ** 2 % span
+    off = (((hi % span) * mult) & MASK32) + lo % span
+    off = (off & MASK32) % span
+    return (off + minval).to(torch.int32)
+
+
+def _unit(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Floats in [0, 1): 23 random mantissa bits under exponent 0, less
+    one."""
+    mant = (bits(key, shape) >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32."""
+    lo = torch.tensor(minval, dtype=torch.float32)
+    hi = torch.tensor(maxval, dtype=torch.float32)
+    return torch.maximum(lo, _unit(key, _shape(shape)) * (hi - lo) + lo)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
+    """``jax.random.bernoulli``: a float32 uniform below ``p``."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+# XLA's float32 erf_inv (M. Giles, "Approximating the erfinv function"):
+# coefficients of the polynomial in w - 2.5 where w < 5, in sqrt(w) - 3
+# beyond
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``: the polynomial's steps as fused
+    multiply-adds (the product and sum in float64, rounded once to
+    float32), the rest op for op in float32."""
+    x = x.float()
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    f32 = torch.float32
+    p = torch.where(small, torch.tensor(_ERFINV_SMALL[0], dtype=f32),
+                    torch.tensor(_ERFINV_LARGE[0], dtype=f32))
+    for c_small, c_large in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        c = torch.where(small, torch.tensor(c_small, dtype=f32),
+                        torch.tensor(c_large, dtype=f32))
+        p = (c.double() + p.double() * w.double()).float()
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.normal`` in float32: sqrt(2) erf_inv(u) for u uniform
+    in (-1, 1)."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0))
+    u = uniform(key, shape, float(lo), 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32) * erf_inv(u)

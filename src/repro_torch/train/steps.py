@@ -1,13 +1,166 @@
-"""Step builders of ``repro/train/steps.py``, serving half: prefill, one
-greedy decode step, and the cache. The training step waits for the
-training slice (ROADMAP.md §1)."""
+"""Step builders of ``repro/train/steps.py``: the training step (the jash
+payload of proof-of-useful-work training), its state and the canonical
+digests the chain commits, and the serving half: prefill, one greedy
+decode step, and the cache.
+
+``make_train_step(cfg)`` returns ``(state, batch) -> (state, metrics)``:
+the loss, its gradients by autograd (through the hand-written flash
+backward on the card), the cosine schedule and AdamW. The state is
+replaced, never changed in place, so a snapshot of it stays valid.
+"""
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.model import (adapt_for_shape, build_model,
                                       cache_len_for)
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
+                                     tree_leaves, tree_map)
+from repro_torch.optim.schedule import cosine_schedule
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: AdamWState
+
+
+# ---------------------------------------------------------------------------
+# digest-stable state canonicalization
+# ---------------------------------------------------------------------------
+
+
+def _flatten_with_path(tree: Any, path: Tuple[str, ...] = ()
+                       ) -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) pairs in JAX's flattening order: dict keys sorted,
+    sequences by index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten_with_path(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten_with_path(v, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
+def _canonical_leaf(leaf: Any) -> np.ndarray:
+    """Little-endian, C-contiguous host copy of a leaf: the only byte order
+    a digest may ever see, whatever device the tensor lives on."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu().numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.str.startswith(">"):
+        arr = arr.astype(arr.dtype.newbyteorder("<"))
+    return np.ascontiguousarray(arr)
+
+
+def canonical_tree_bytes(tree: Any) -> Iterator[bytes]:
+    """The canonical byte framing of a tree, leaf by leaf: ``path | dtype |
+    ndim | shape | little-endian C-order data``, byte for byte the
+    reference's, so both packages commit the same digest for the same
+    values. Leaves are gathered to the host first."""
+    for pstr, leaf in _flatten_with_path(tree):
+        arr = _canonical_leaf(leaf)
+        yield pstr.encode() + b"\x00" + arr.dtype.str.encode() + b"\x00"
+        yield np.int64(arr.ndim).tobytes()
+        yield np.asarray(arr.shape, np.int64).tobytes()
+        yield arr.tobytes(order="C")
+
+
+def tree_digest(tree: Any) -> str:
+    """sha256 hex digest of ``canonical_tree_bytes(tree)``."""
+    h = hashlib.sha256()
+    for chunk in canonical_tree_bytes(tree):
+        h.update(chunk)
+    return h.hexdigest()
+
+
+def params_digest(state_or_params: Any) -> str:
+    """The chain's ``state_digest`` for model training: the digest of the
+    params of a ``TrainState`` or of a bare params tree."""
+    params = (state_or_params.params
+              if isinstance(state_or_params, TrainState) else state_or_params)
+    return tree_digest(params)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHparams:
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def make_train_state(cfg: ModelConfig, key: Any,
+                     device: DeviceLike = None) -> TrainState:
+    """Params from ``Model.init(key)`` (a threefry key of
+    ``repro_torch.random`` draws the reference's weights on the host) on
+    ``device``, and zeroed AdamW state."""
+    dev = resolve(device)
+    params = tree_map(lambda t: t.to(dev), build_model(cfg).init(key))
+    return TrainState(params=params,
+                      opt=adamw_init(params, getattr(torch, cfg.opt_dtype)))
+
+
+def _unflatten(tree: Any, leaves: Iterator[torch.Tensor]) -> Any:
+    """A tree like ``tree`` holding ``leaves`` in sorted-key order."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    return next(leaves)
+
+
+def make_train_step(cfg: ModelConfig, hp: TrainHparams = TrainHparams()
+                    ) -> Callable[[TrainState, Dict],
+                                  Tuple[TrainState, Dict]]:
+    model = build_model(cfg)
+
+    def train_step(state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict]:
+        params = tree_map(lambda t: t.detach().requires_grad_(True),
+                          state.params)
+        with torch.enable_grad():
+            loss, metrics = model.loss(params, batch)
+            # every leaf must be reached: an op that drops the gradient
+            # raises here instead of leaving a weight unchanged
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+        grads = _unflatten(params, iter(grads))
+        with torch.no_grad():
+            lr = cosine_schedule(state.opt.step + 1, peak_lr=hp.peak_lr,
+                                 warmup_steps=hp.warmup_steps,
+                                 total_steps=hp.total_steps)
+            new_params, opt = adamw_update(
+                tree_map(torch.Tensor.detach, params), grads, state.opt, lr,
+                weight_decay=hp.weight_decay, grad_clip=hp.grad_clip)
+        out = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+               "aux": metrics["aux"].detach(), "lr": lr}
+        return TrainState(params=new_params, opt=opt), out
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig):
+    """Forward-only loss (optimal-mode and ES candidate scoring)."""
+    model = build_model(cfg)
+
+    def eval_step(params, batch) -> torch.Tensor:
+        with torch.no_grad():
+            loss, _ = model.loss(params, batch)
+        return loss
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ModelConfig, shape: InputShape):

@@ -661,3 +661,161 @@ def test_a_journal_recovers_on_the_other_device(journaled, writer, reader):
     assert node.ledger.tip_hash == donor.ledger.tip_hash
     assert node.book.balances == donor.book.balances
     assert node.audit_chain()
+
+
+# -- the training slice: the flash backward and the training step -------------
+# (B, S, T, H, Kv, causal, window) at each head dim the backward takes
+_BWD_CASES = [(2, 33, 33, 4, 2, True, 0), (1, 100, 100, 8, 1, True, 0),
+              (2, 70, 150, 4, 2, False, 0), (1, 150, 70, 4, 4, True, 0),
+              (2, 90, 90, 4, 4, True, 17), (4, 32, 32, 8, 4, True, 0),
+              (1, 64, 64, 2, 1, True, 32)]
+# |kernel - twin| <= BWD_TOL (1 + |twin|), float32
+BWD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_backward_kernel_matches_its_twin(card, hd, case):
+    from repro_torch.kernels import flash_attention_bwd
+    B, S, T, H, Kv, causal, window = case
+    gen = torch.Generator(device=card).manual_seed(hd + S + T + H)
+    q, k, v = (torch.randn(shape, generator=gen, device=card) for shape in
+               ((B, S, H, hd), (B, T, Kv, hd), (B, T, Kv, hd)))
+    o, lse = flash_attention.flash_attention_lse_cuda(q, k, v, causal=causal,
+                                                      window=window)
+    do = torch.randn(o.shape, generator=gen, device=card)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    assert flash_attention_bwd.launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert torch.allclose(g, w, rtol=BWD_TOL, atol=BWD_TOL)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_lse_instance_equals_the_serving_instance(card, hd):
+    gen = torch.Generator(device=card).manual_seed(hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=card) for shape in
+               ((2, 77, 4, hd), (2, 77, 2, hd), (2, 77, 2, hd)))
+    for causal, window in ((True, 0), (False, 0), (True, 9)):
+        out, lse = flash_attention.flash_attention_lse_cuda(
+            q, k, v, causal=causal, window=window)
+        assert torch.equal(out, flash_attention.flash_attention_cuda_core(
+            q, k, v, causal=causal, window=window))
+        assert torch.allclose(lse, ref.flash_attention_lse_ref(
+            q, k, v, causal=causal, window=window), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_backward_raises_for_what_it_cannot_take(card):
+    from repro_torch.kernels import flash_attention_bwd
+    q = torch.randn(1, 8, 2, 32, device=card)
+    o, lse = flash_attention.flash_attention_lse_cuda(q, q, q, causal=True)
+    with pytest.raises(TypeError, match="ROADMAP"):
+        flash_attention_bwd.flash_attention_bwd_cuda(
+            q.bfloat16(), q.bfloat16(), q.bfloat16(), o, lse, o,
+            causal=True)
+    x = torch.randn(1, 8, 2, 256, device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(x, x, x, causal=True)
+    with pytest.raises(TypeError, match="ROADMAP"):
+        y = torch.randn(1, 8, 2, 64, device=card).bfloat16()
+        ops.flash_attention(y.requires_grad_(True), y, y, causal=True)
+
+
+def test_ops_flash_attention_carries_the_gradient_through_the_kernels(card):
+    from repro_torch.kernels import flash_attention_bwd
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device=card)
+               .requires_grad_(True) for shape in
+               ((4, 32, 8, 32), (4, 32, 4, 32), (4, 32, 4, 32)))
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert (flash_attention.launches - before[0],
+            flash_attention_bwd.launches - before[1]) == (1, 1)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        ref.flash_attention_ref(*cpu, causal=True).square().sum(), cpu)
+    for g, w in zip(grads, want):
+        assert torch.allclose(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        ops.flash_attention(q, k, v, causal=True)
+    assert flash_attention_bwd.launches - before[1] == 1
+
+
+def test_every_pnpcoin_demo_leaf_gets_its_gradient_on_the_card(card):
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.train import steps
+    cfg = get_config("pnpcoin-demo")
+    batch = SyntheticTokenPipeline(
+        cfg, InputShape("chain32x4", 32, 4, "train")).microbatch(0, 0)
+    params = steps.make_train_state(cfg, random.key(0), "cpu").params
+    grads = {}
+    for dev in ("cpu", card):
+        leaves = {p: t.to(dev).requires_grad_(True) for p, t in
+                  steps._flatten_with_path(params)}
+        tree = steps._unflatten(params, iter(leaves[p] for p in
+                                             sorted(leaves)))
+        loss, _ = build_model(cfg).loss(tree, batch)
+        grads[str(dev)] = dict(zip(sorted(leaves), torch.autograd.grad(
+            loss, [leaves[p] for p in sorted(leaves)])))
+    for path, g in grads["cuda"].items():
+        want = grads["cpu"][path]
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), path
+        scale = float(want.abs().max())
+        assert float((g.cpu() - want).abs().max()) <= 1e-4 * scale, path
+
+
+def test_two_fresh_workloads_on_the_card_agree_bit_for_bit(card):
+    from repro_torch.chain import BlockContext, store
+    from repro_torch.chain.workloads import ModelTrainingWorkload
+    a, b, c = (ModelTrainingWorkload(device="cuda", n_miners=2)
+               for _ in range(3))
+    mined = []
+    for height in range(4):
+        ctx = BlockContext(height=height, prev_hash="", node_id=0)
+        pa, pb = a.mine(a.prepare(ctx)), b.mine(b.prepare(ctx))
+        assert (pa.merkle_root, pa.state_digest, pa.loss) == \
+            (pb.merkle_root, pb.state_digest, pb.loss)
+        mined.append(pa)
+    assert a.state_digest() == b.state_digest()
+    # a third replays the blocks through the journal's encoding
+    assert all(c.verify(store.decode_payload(store.encode_payload(p)))
+               for p in mined)
+    assert c.state_digest() == a.state_digest()
+
+
+def test_a_training_step_runs_the_hand_attention_kernels_only(card):
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train import steps
+    cfg = get_config("pnpcoin-demo")
+    step = steps.make_train_step(cfg)
+    state = steps.make_train_state(cfg, random.key(0), "cuda")
+    batch = SyntheticTokenPipeline(
+        cfg, InputShape("chain32x4", 32, 4, "train")).microbatch(0, 0)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_QUIET_S)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_QUIET_S)
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    for kernel in ("flash_fwd_kernel", "dq_kernel", "dkv_kernel"):
+        assert sum(kernel in n for n in names) == cfg.n_layers, names
+    assert not [n for n in names if any(
+        lib in n for lib in ("pytorch_flash", "fmha", "efficient_attention",
+                             "mem_eff"))]

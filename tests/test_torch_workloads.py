@@ -261,12 +261,12 @@ def test_blocks_verify_across_packages(want_cert):
 
 def test_default_suite_holds_the_ported_families_only():
     suite = default_suite(seed=3, device=CPU, sat={"n_vars": 5})
-    assert sorted(suite) == ["docking", "sat"]
+    assert sorted(suite) == ["docking", "model_train", "sat"]
     assert suite["sat"].n_vars == 5 and suite["sat"].seed == 3
     assert all(wl.device == torch.device(CPU) for wl in suite.values())
     for name, cls in WORKLOAD_FAMILIES.items():
         assert cls.name == name
-    for family in ("gan", "model_train", "nonesuch"):
+    for family in ("gan", "nonesuch"):
         with pytest.raises(ValueError, match="no ported workload family"):
             default_suite(device=CPU, **{family: {}})
     with pytest.raises(ValueError, match="registry key must match"):
