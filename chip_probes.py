@@ -36,15 +36,29 @@ Prints one JSON line per probe, each with the card's name and power limit
      over tiles (warps a block, keys a tile, stages of its K and V rings)
      at qwen3-0.6b's prefill shape, in turns with SDPA's efficient backend,
      and at pnpcoin-demo's from a CUDA graph;
- 10. merkle_units: the Merkle reduction over the nodes a block takes in and
+ 10. flash_bwd_tiles: the float32 flash backward (causal, TF32 off) over
+     its tiles (the key pass's warps, keys a warp, queries a tile and
+     stages; the dQ pass's stages), each held against the plain twin and
+     bit-equal from launch to launch, with each variant's ptxas registers
+     and spills and the source's split by kernel: at qwen3-0.6b's float32
+     prefill shape by events in turns with SDPA's efficient backward, at
+     pnpcoin-demo's training call from a CUDA graph (SDPA's backward too);
+ 11. flash_bwd_memory: the device memory a float32 flash backward call
+     allocates over its inputs (outputs and workspace) at qwen3-0.6b's
+     float32 prefill shape and at B 8, S = T 4096 (past the 2 GiB cap on
+     dS), SDPA's efficient backward beside it; and, where the tree's
+     wrapper caps dS, that second shape in chunks against one chunk in
+     turns. ``--src DIR`` measures another tree's backward, as for
+     merkle_host;
+ 12. merkle_units: the Merkle reduction over the nodes a block takes in and
      the levels it reduces them through, at the mining path's 2**20 leaves
      and a forest of 4 x 2**16, from a CUDA graph;
- 11. merkle_host: the host clock of a 2**20-leaf full result's
+ 13. merkle_host: the host clock of a 2**20-leaf full result's
      ``commit_root()`` split into its steps, and of
      ``recompute_roots_batched`` on it. ``--src DIR`` imports
      ``repro_torch`` from DIR/src instead (another tree of this repo, so
      two trees can be compared in turns in one run);
- 12. profiler_count: whether ``torch.profiler`` records all three SHA-256
+ 14. profiler_count: whether ``torch.profiler`` records all three SHA-256
      kernels of three calls, over 200 sessions launching as soon as the
      session starts and stopping as soon as the card has synchronised,
      and 200 with quiet time at both ends, in turns (the count of
@@ -466,6 +480,10 @@ def main() -> int:
         probe_sha_blocks(gpu)
     if want("flash_tiles"):
         probe_flash_tiles(gpu)
+    if want("flash_bwd_tiles"):
+        probe_flash_bwd_tiles(gpu)
+    if want("flash_bwd_memory"):
+        probe_flash_bwd_memory(gpu)
     if want("merkle_units"):
         probe_merkle_units(gpu)
     if want("merkle_host"):
@@ -477,7 +495,8 @@ def main() -> int:
 
 PROBES = ("shared_loads", "fp32_issue", "wkv6_step_loop", "wkv6_per_step",
           "int_issue", "memory_in_flight", "decay_scan_tiles",
-          "sha256_blocks", "flash_tiles", "merkle_units", "merkle_host",
+          "sha256_blocks", "flash_tiles", "flash_bwd_tiles",
+          "flash_bwd_memory", "merkle_units", "merkle_host",
           "profiler_count")
 
 
@@ -586,11 +605,12 @@ def probe_memory(probes, gpu: str, sms: int) -> None:
               / (blocks / sms)}})
 
 
-def build_variants(source: str, variants: dict) -> dict:
+def build_variants(source: str, variants: dict, logs: dict = None) -> dict:
     """``csrc/<source>`` built once a variant with the variant's -D flags
     (all nvcc processes started together) into its own library under
     ``build/repro_torch_probes/``, loaded; the port's library is not
-    touched."""
+    touched. ``logs``, if given, gets each variant's nvcc output (ptxas's
+    registers and spills)."""
     from repro_torch.kernels import native
     out = ROOT / "build" / "repro_torch_probes"
     out.mkdir(parents=True, exist_ok=True)
@@ -608,6 +628,8 @@ def build_variants(source: str, variants: dict) -> dict:
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on {source} {label}:\n"
                                    f"{text}")
+            if logs is not None:
+                logs[label] = text
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -810,6 +832,277 @@ def probe_flash_tiles(gpu: str) -> None:
         del q, k, v, want, qt, kt, vt, out
         torch.cuda.empty_cache()
     emit({"probe": "flash_tiles", "gpu": gpu, **res})
+
+
+# the backward's variants: label -> -D flags. The key pass's tile is
+# (BWD_DKV_WARPS, BWD_DKV_TM, BWD_DKV_BQ, BWD_DKV_STAGES), the dQ pass's
+# ring BWD_DQS_STAGES. A flag set applies to every head dim; one left out
+# keeps the source's tile
+def _bwd_flags(dkv=None, dqs_stages=None):
+    flags = []
+    if dkv:
+        flags += [f"-DBWD_DKV_{n}={x}" for n, x in
+                  zip(("WARPS", "TM", "BQ", "STAGES"), dkv)]
+    if dqs_stages:
+        flags += [f"-DBWD_DQS_STAGES={dqs_stages}"]
+    return flags
+
+
+BWD_VARIANTS = {
+    "the source's tiles": [],
+    "dq ring x 3": _bwd_flags(dqs_stages=3),
+    "dkv 8w x 8 keys x 32 queries x 2": _bwd_flags(dkv=(8, 8, 32, 2)),
+    "dkv 8w x 4 keys x 64 queries x 2": _bwd_flags(dkv=(8, 4, 64, 2)),
+    "small: dkv 1w x 16 keys x 32 queries": _bwd_flags(dkv=(1, 16, 32, 2)),
+    "small: dkv 4w x 8 keys x 32 queries": _bwd_flags(dkv=(4, 8, 32, 2)),
+}
+BWD_KERNELS = r"(dq_kernel|dkv_kernel|dot_kernel)"
+# |kernel - twin| <= BWD_TOL max(1, max |twin|), as chip_smoke.py holds it
+BWD_TOL = 1e-5
+
+
+def ptxas_kernels(log: str, pattern: str) -> dict:
+    """Registers and spill lines of each kernel whose mangled name matches
+    ``pattern`` (a regex with the name in group 1), by name and head dim,
+    from nvcc's ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            found = re.search(pattern, entry[1])
+            hd = re.search(r"ILi(\d+)E", entry[1])
+            name = f"{found[1]}<hd={hd[1]}>" if found and hd else None
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def kernel_split(fn, calls: int = 5) -> dict:
+    """Device ms and launches a call of each CUDA kernel ``fn`` launches,
+    by ``torch.profiler`` over ``calls`` calls (quiet time at both ends)."""
+    import time
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(QUIET_S)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(QUIET_S)
+    ms, n = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            found = re.search(BWD_KERNELS, e.name)
+            name = found[1] if found else e.name[:40]
+            ms[name] += e.device_time / 1e3 / calls
+            n[name] += 1
+    return {name: {"ms": ms[name], "launches": n[name] / calls}
+            for name in ms}
+
+
+def probe_flash_bwd_tiles(gpu: str) -> None:
+    """The float32 flash backward over ``BWD_VARIANTS`` (each built from
+    flash_attention_bwd.cu with its -D flags), causal, each within
+    ``BWD_TOL`` of the plain twin and bit-equal from launch to launch: at
+    qwen3-0.6b's prefill shape by events around 10 calls, in turns with
+    SDPA's efficient backward (K and V repeated to H heads, TF32 off); at
+    pnpcoin-demo's training call replayed from a CUDA graph, SDPA's too.
+    Each variant's registers and spills from ptxas."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from chip_smoke import sdpa_backward_graph_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    logs = {}
+    libs = build_variants("flash_attention_bwd.cu", BWD_VARIANTS, logs)
+    for lib in libs.values():
+        lib.pnp_flash_attention_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i32,
+            i32, i32, i32, i64, vp]
+        lib.pnp_flash_attention_bwd.restype = ctypes.c_int
+        lib.pnp_flash_attention_bwd_workspace_words.argtypes = [
+            i64, i64, i64, i32, i32, i32, i32, i64]
+        lib.pnp_flash_attention_bwd_workspace_words.restype = ctypes.c_int64
+    emit({"probe": "flash_bwd_tiles", "gpu": gpu, "flags": BWD_VARIANTS,
+          "ptxas": {label: ptxas_kernels(
+              text, BWD_KERNELS)
+              for label, text in logs.items()}})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for shape, (B, S, H, Kv, hd) in {
+            "qwen3-0.6b": (8, 2048, 16, 8, 128),
+            "pnpcoin-demo": (4, 32, 8, 4, 32)}.items():
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+        k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda")
+        v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda")
+        o, lse = fa.flash_attention_lse_cuda(q, k, v, causal=True)
+        do = torch.randn(o.shape, generator=gen, device="cuda")
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+        scales = [max(1.0, float(w.abs().max())) for w in want]
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for x in (k, v))
+        dot = do.transpose(1, 2).contiguous()
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sd_out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+
+        def sdpa():
+            return torch.autograd.grad(sd_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        fns, errs = {"sdpa_efficient": sdpa}, {}
+        outs = [torch.empty_like(x) for x in (q, k, v)]
+        for label, lib in libs.items():
+            ws = torch.empty(lib.pnp_flash_attention_bwd_workspace_words(
+                B, S, S, H, hd, 1, 0, fb.DS_CAP_BYTES), dtype=torch.int32,
+                device="cuda")
+
+            def call(lib=lib, ws=ws):
+                _ok(lib.pnp_flash_attention_bwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), do.data_ptr(), outs[0].data_ptr(),
+                    outs[1].data_ptr(), outs[2].data_ptr(), ws.data_ptr(),
+                    B, S, S, H, Kv, hd, 1, 0, fb.DS_CAP_BYTES,
+                    torch.cuda.current_stream().cuda_stream))
+            call()
+            first = [x.clone() for x in outs]
+            call()
+            err = [float((g - w).abs().max()) for g, w in zip(outs, want)]
+            if not all(torch.equal(a, b) for a, b in zip(outs, first)):
+                raise RuntimeError(f"flash backward {label} at {shape}: two "
+                                   "launches differ")
+            if any(e > BWD_TOL * sc for e, sc in zip(err, scales)):
+                raise RuntimeError(f"flash backward {label} at {shape}: "
+                                   f"{err} against {scales}")
+            errs[label] = max(e / sc for e, sc in zip(err, scales))
+            fns[label] = call
+            del first
+        if S > 64:
+            times = {key: [] for key in fns}
+            for r in range(2):
+                for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                    times[key].append(elapsed_ms(
+                        lambda: [fns[key]() for _ in range(10)]) / 10)
+            ms = {key: statistics.median(t) for key, t in times.items()}
+        else:
+            ms = {key: graph_ms(fn) for key, fn in fns.items()
+                  if key != "sdpa_efficient"}
+            ms["sdpa_efficient"] = sdpa_backward_graph_ms(qt, kt, vt, dot)
+        split = kernel_split(fns[next(iter(BWD_VARIANTS))])
+        emit({"probe": "flash_bwd_tiles", "gpu": gpu, "at": shape,
+              "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} float32 "
+                       "causal",
+              "timed": "events, 10 calls, in turns" if S > 64
+              else "from a CUDA graph", "ms": ms,
+              "source_tiles_by_kernel": split,
+              "tolerance": f"max |kernel - twin| <= {BWD_TOL} max(1, max "
+                           "|twin|), each of dQ, dK, dV",
+              "max_err_over_scale": errs})
+        del q, k, v, o, lse, do, want, qt, kt, vt, dot, sd_out, outs
+        torch.cuda.empty_cache()
+
+
+# the backward's memory probe: (B, S, H, Kv, hd), causal; the second holds
+# 4.3 GB of dS, past the wrapper's 2 GiB cap
+BWD_MEMORY_SHAPES = {"qwen3-0.6b": (8, 2048, 16, 8, 128),
+                     "S=T=4096": (8, 4096, 16, 8, 128)}
+
+
+def probe_flash_bwd_memory(gpu: str) -> None:
+    """The most device memory a float32 flash backward call allocates over
+    its inputs (its outputs and workspace, by the allocator's peak), for
+    the tree whose ``repro_torch`` is imported (this one, or ``--src``'s),
+    at ``BWD_MEMORY_SHAPES``; SDPA's efficient backward beside it (its K
+    and V repeated to H heads, so its dK and dV are G times the kernel's).
+    Where the tree's wrapper caps dS (``DS_CAP_BYTES``), also each shape
+    with that cap and in one chunk: their workspaces, kernel launches a
+    call, times by events around 5 calls in turns, and the largest
+    difference between the two (the chunks change the order of dQ's
+    sum)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import repro_torch
+    from chip_smoke import peak_extra_bytes
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import native
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for shape, (B, S, H, Kv, hd) in BWD_MEMORY_SHAPES.items():
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+        k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda")
+        v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda")
+        o, lse = fa.flash_attention_lse_cuda(q, k, v, causal=True)
+        do = torch.randn(o.shape, generator=gen, device="cuda")
+        outputs = 4 * (q.numel() + 2 * k.numel())
+        kernel = peak_extra_bytes(lambda: fb.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=True))
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for x in (k, v))
+        dot = do.transpose(1, 2).contiguous()
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sd_out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+        sdpa = peak_extra_bytes(lambda: torch.autograd.grad(
+            sd_out, (qt, kt, vt), dot, retain_graph=True))
+        entry = {"probe": "flash_bwd_memory", "gpu": gpu,
+                 "tree": str(Path(repro_torch.__file__).resolve()
+                             .parents[2]), "at": shape,
+                 "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} float32 "
+                          "causal",
+                 "kernel_peak_bytes": kernel,
+                 "kernel_outputs_bytes": outputs,
+                 "kernel_workspace_bytes": kernel - outputs,
+                 "sdpa_efficient_peak_bytes": sdpa}
+        del qt, kt, vt, dot, sd_out
+        torch.cuda.empty_cache()
+        if hasattr(fb, "DS_CAP_BYTES"):
+            lib = native.library()
+            outs = [torch.empty_like(x) for x in (q, k, v)]
+            fns, got, ws_bytes = {}, {}, {}
+            for label, cap in (("capped", fb.DS_CAP_BYTES),
+                               ("one_chunk", 1 << 40)):
+                ws = torch.empty(lib.pnp_flash_attention_bwd_workspace_words(
+                    B, S, S, H, hd, 1, 0, cap), dtype=torch.int32,
+                    device="cuda")
+
+                def call(ws=ws, cap=cap):
+                    _ok(lib.pnp_flash_attention_bwd(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                        outs[0].data_ptr(), outs[1].data_ptr(),
+                        outs[2].data_ptr(), ws.data_ptr(), B, S, S, H, Kv,
+                        hd, 1, 0, cap,
+                        torch.cuda.current_stream().cuda_stream))
+                call()
+                got[label] = [x.clone() for x in outs]
+                fns[label] = call
+                ws_bytes[label] = 4 * ws.numel()
+            times = {key: [] for key in fns}
+            for r in range(2):
+                for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                    times[key].append(elapsed_ms(
+                        lambda: [fns[key]() for _ in range(5)]) / 5)
+            entry["cap_bytes"] = fb.DS_CAP_BYTES
+            entry["workspace_bytes"] = ws_bytes
+            entry["launches_a_call"] = {
+                key: {name: x["launches"] for name, x in
+                      kernel_split(fn, calls=1).items()}
+                for key, fn in fns.items()}
+            entry["ms_by_events_in_turns"] = {
+                key: statistics.median(t) for key, t in times.items()}
+            entry["capped_vs_one_chunk_max_abs_diff"] = [
+                float((a - b).abs().max())
+                for a, b in zip(got["capped"], got["one_chunk"])]
+            del outs, fns, got, ws, call
+        emit(entry)
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
 
 
 def probe_merkle_units(gpu: str) -> None:

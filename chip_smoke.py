@@ -23,10 +23,10 @@ On one CUDA card it:
      head sizes that cut through its 16 x 4 register tiles and sequence
      lengths at the edges of its 16-step chunks), and the flash backward
      (dQ, dK, dV) within 1e-5 of its plain twin (scaled by each
-     tensor's largest entry, at least 1) over 44 cases (head dims 32, 64
-     and 128, GQA and MQA, causal or not, windows, ragged S and T, and
-     the training calls of pnpcoin-demo and, in float32, qwen3-0.6b's
-     shape), each bit-equal to a second launch,
+     tensor's largest entry, at least 1) over 80 cases (head dims 32, 64
+     and 128, GQA and MQA, causal or not, windows, rows that see no key,
+     S and T at its tiles' edges, and the training calls of pnpcoin-demo and, in float32,
+     qwen3-0.6b's shape), each bit-equal to a second launch,
      with the forward's training instance (which saves the row
      log-sum-exp) bit-equal to its serving instance;
      then times kernels, plain versions and, for attention, PyTorch's SDPA
@@ -38,9 +38,12 @@ On one CUDA card it:
      replayed from a CUDA graph; the decay scan's tiled and one-thread-a-
      chain kernels in turns; a Merkle reduction of 2**20 leaves by events
      and from a CUDA graph; the flash backward at pnpcoin-demo's and
-     qwen3-0.6b's shapes by events and from a graph, in turns with SDPA's
-     memory-efficient backward, and the forward's training instance in
-     turns with its serving instance);
+     qwen3-0.6b's shapes and at qwen3-0.6b's heads with S = T = 4096 (past
+     the cap on dS, in chunks of key tiles; held against the twin on
+     batch row 0 and bit-equal twice) by events and from a graph, in
+     turns with SDPA's memory-efficient backward (at pnpcoin-demo's also
+     from a graph), with each call's peak device memory, and the
+     forward's training instance in turns with its serving instance);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -83,7 +86,7 @@ On one CUDA card it:
      CUDA-core kernel, launches counted) and on the CPU must agree;
   7. counts with torch.profiler the CUDA kernels a SHA-256 call runs (one)
      and those of 3 pnpcoin-demo training steps (the flash forward's
-     training instance and the backward's two kernels once a layer and
+     training instance and the backward's three kernels once a layer and
      step, no attention kernel of PyTorch's; last, since a traced process
      launches more slowly afterwards), checks
      each kernel's launch count from its own path (21 SHA-256 and 2
@@ -154,8 +157,8 @@ F32_FLOPS_S = 67e12
 # any), Merkle 1, flash 4 head dims x 2 dtypes, tensor-core flash 3 head
 # dims (bf16), WKV-6 2 dtypes, decay scan 2 (tiled, one thread a chain),
 # flash's training instance (float32, with the row log-sum-exp) 3 head
-# dims, the flash backward 2 kernels x 3 head dims
-N_KERNEL_INSTANCES = 9 + 1 + 8 + 3 + 2 + 2 + 3 + 6
+# dims, the flash backward 3 kernels (D, dK and dV, dQ) x 3 head dims
+N_KERNEL_INSTANCES = 9 + 1 + 8 + 3 + 2 + 2 + 3 + 9
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -181,6 +184,9 @@ BWD_TOL = 1e-5
 # chain trains it, and qwen3-0.6b's prefill shape in float32
 DEMO_ATTN = (4, 32, 8, 4, 32)
 QWEN_F32_ATTN = (SERVE_BATCH, SERVE_PROMPT, 16, 8, 128)
+# qwen3-0.6b's heads at S = T = 4096: 4.3 GB of dS, past the backward's
+# 2 GiB cap, so its key tiles go in chunks
+CHUNKED_ATTN = (SERVE_BATCH, 4096, 16, 8, 128)
 # pnpcoin-demo's chain: as examples/chain_train_model.py runs it
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_BLOCKS = 32, 4, 2, 4
 # training steps profiled in the last phase
@@ -229,7 +235,7 @@ def kernel_name(mangled: str) -> str:
     import re
     found = re.search(r"(sha256_rows_kernel|merkle_reduce_kernel|"
                       r"flash_fwd_kernel|flash_tc_kernel|wkv6_kernel|"
-                      r"dq_kernel|dkv_kernel|"
+                      r"dq_kernel|dkv_kernel|dot_kernel|"
                       r"decay_scan_per_chain_kernel|decay_scan_kernel)",
                       mangled)
     check(found is not None, f"known kernel name in {mangled}")
@@ -242,7 +248,7 @@ def kernel_name(mangled: str) -> str:
     hd = re.search(r"ILi(\d+)E", mangled)
     if name == "flash_tc_kernel":
         name += f"<bf16,hd={hd[1]}>"
-    elif name in ("dq_kernel", "dkv_kernel"):
+    elif name in ("dq_kernel", "dkv_kernel", "dot_kernel"):
         name = f"flash_bwd_{name}<f32,hd={hd[1]}>"
     elif name == "flash_fwd_kernel" and "Lb1E" in mangled:
         name += f"<f32,hd={targs[2]},lse>"
@@ -289,6 +295,24 @@ def flash_tc_resources() -> dict:
             "registers": regs.value, "dynamic_shared_bytes": smem.value,
             "local_bytes": local.value}
         check(local.value == 0, f"flash_tc_kernel<hd={hd}> spills nothing")
+    return out
+
+
+def flash_bwd_resources(ptxas: dict) -> dict:
+    """The flash backward's instances: ptxas's registers and spills, and
+    each head dim's tiles with the registers and local (spilled) bytes the
+    runtime reports; fails on a spill."""
+    from repro_torch.kernels import flash_attention_bwd
+    out = {"ptxas": {name: lines for name, lines in ptxas["kernels"].items()
+                     if name.startswith("flash_bwd_")}}
+    for hd in flash_attention_bwd.HEAD_DIMS:
+        tile = flash_attention_bwd.tile(hd)
+        for key, res in tile.items():
+            if key.endswith("_resources"):
+                check(res["local_bytes"] == 0,
+                      f"flash backward {key} at hd {hd} spills nothing")
+        out[f"hd={hd}"] = tile
+    check(len(out["ptxas"]) == 9, f"9 backward instances: {out['ptxas']}")
     return out
 
 
@@ -792,9 +816,9 @@ def train_kernels_a_step(dev) -> dict:
     """The CUDA kernels of ``TRAIN_PROFILED`` pnpcoin-demo training steps
     (the workload's step, on the card), counted by ``torch.profiler`` in a
     window with quiet time at both ends: the flash forward's training
-    instance, the backward's dQ and dK/dV kernels once a layer and step
-    each, and no attention kernel of PyTorch's. Last, as the SHA-256
-    count."""
+    instance, the backward's D, dK/dV and dQ kernels once a layer and step
+    each (one chunk of key tiles), and no attention kernel of PyTorch's.
+    Last, as the SHA-256 count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import random
@@ -818,7 +842,8 @@ def train_kernels_a_step(dev) -> dict:
         torch.cuda.synchronize()
         time.sleep(PROFILER_QUIET_S)
     names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
-    count = {"flash_fwd_kernel": 0, "dq_kernel": 0, "dkv_kernel": 0}
+    count = {"flash_fwd_kernel": 0, "dot_kernel": 0, "dkv_kernel": 0,
+             "dq_kernel": 0}
     for name in names:
         for key in count:
             if key in name:
@@ -1749,15 +1774,27 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
 
 
 # the flash backward's cases: (B, S, T, H, Kv, causal, window), at each head
-# dim it takes; S and T off its tiles of 32 queries and 32 keys, GQA and
-# MQA, causal or not, windows, S != T both ways
+# dim it takes; S and T off its tiles (both passes 64 queries x 64 keys at
+# hd 64 and 128, 32 x 16 at hd 32): 1, a tile +- 1 and 2 BK + 1; GQA and
+# MQA (G = 1, 2, 4, 16), causal or not, windows across a tile's edge, S !=
+# T both ways, rows that see no key (S 100 over T 40 with a window of 20).
+# On those rows the forward's log-sum-exp is its sentinel, (-1e30 + log2
+# n) / log2(e), where the plain version's is -1e30 (ROADMAP.md §3): the
+# log-sum-exp is compared on the rows that see a key, the gradients on
+# every row
 BWD_CASES = [(2, 33, 33, 4, 2, True, 0), (1, 100, 100, 8, 1, True, 0),
              (2, 70, 150, 4, 2, False, 0), (1, 150, 70, 4, 4, True, 0),
              (2, 90, 90, 4, 4, True, 17), (4, 32, 32, 8, 4, True, 0),
              (1, 64, 64, 2, 1, True, 32), (2, 31, 31, 2, 1, True, 0),
              (1, 32, 65, 4, 2, False, 0), (2, 97, 97, 4, 1, False, 20),
              (1, 129, 129, 2, 2, True, 0), (1, 200, 200, 2, 1, True, 64),
-             (3, 1, 1, 2, 1, True, 0), (1, 257, 257, 8, 2, True, 0)]
+             (3, 1, 1, 2, 1, True, 0), (1, 257, 257, 8, 2, True, 0),
+             (2, 1, 129, 4, 2, False, 0), (1, 15, 15, 2, 2, True, 0),
+             (1, 65, 65, 4, 1, True, 0), (1, 127, 127, 4, 2, True, 0),
+             (2, 129, 65, 4, 2, False, 0), (1, 63, 129, 4, 2, False, 0),
+             (1, 33, 17, 2, 1, False, 0), (1, 257, 2, 2, 1, False, 0),
+             (1, 200, 200, 2, 1, True, 70), (1, 100, 40, 2, 1, True, 20),
+             (1, 129, 129, 16, 1, True, 0), (1, 65, 129, 16, 1, False, 33)]
 
 
 def flash_bwd_vs_plain(dev) -> dict:
@@ -1771,7 +1808,7 @@ def flash_bwd_vs_plain(dev) -> dict:
     in float64 (output and log-sum-exp recomputed in float64). The
     forward's training instance gives the output and log-sum-exp, its
     output bit-equal to the serving instance's and its log-sum-exp within
-    1e-5 of the plain one's."""
+    1e-5 of the plain one's on the rows that see a key."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
@@ -1795,9 +1832,17 @@ def flash_bwd_vs_plain(dev) -> dict:
             f"flash training instance's output = serving instance's, {label}")
         want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
                                                window=window)
-        lse_err = float((lse - want_lse).abs().max())
-        check(torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5),
-              f"flash log-sum-exp vs plain ({lse_err}), {label}")
+        # rows that see a key: t in [s - window + 1, s] (or [0, T))
+        pos = torch.arange(S, device=dev)
+        first = (pos - window + 1).clamp(min=0) if window else 0 * pos
+        last = pos.clamp(max=T - 1) if causal else 0 * pos + T - 1
+        seen = first <= last
+        lse_err = float((lse - want_lse)[..., seen].abs().max()) \
+            if bool(seen.any()) else 0.0
+        check(torch.allclose(lse[..., seen], want_lse[..., seen], rtol=1e-5,
+                             atol=1e-5),
+              f"flash log-sum-exp vs plain on rows that see a key "
+              f"({lse_err}), {label}")
         do = torch.randn(o.shape, generator=gen, device=dev)
         got = fb.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
                                           window=window)
@@ -1871,17 +1916,37 @@ def _bwd_f64(q, k, v, o, lse, do):
             dv.reshape(B, S, Kv, g, hd).sum(3))
 
 
+def peak_extra_bytes(fn) -> int:
+    """The most device memory ``fn()`` allocates over what was allocated
+    before it (its outputs and workspaces), by the caching allocator's
+    peak."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
 def flash_bwd_times(dev) -> dict:
-    """The flash backward at pnpcoin-demo's training call and at
-    qwen3-0.6b's prefill shape in float32 (causal): by events (10 calls in
+    """The flash backward at pnpcoin-demo's training call, qwen3-0.6b's
+    prefill shape in float32 and the same heads at S = T = 4096 (past the
+    cap on dS, so in chunks of key tiles), causal: by events (10 calls in
     a row) and replayed from a CUDA graph, in turns with SDPA's
     memory-efficient backward on the same float32 inputs (K and V repeated
     to H heads, leaf tensors, so only the attention's backward runs), the
     plain twin, and the bound: 5 products of hd FMAs (2 flops each) per
     (query, key) pair of the causal half at 67 TFLOP/s, against q, k, v,
     o, dO, the log-sum-exp read and dQ, dK, dV written once at 3.35 TB/s.
-    Also the forward's training instance (with the log-sum-exp) in turns
-    with its serving instance."""
+    Each call's peak device memory over its inputs, the kernel's and
+    SDPA's. At S = 4096 the kernel is held against the twin on batch row 0
+    (the twin's float32 scores of all 8 rows would take ~9 GB a tensor)
+    and two launches must be bit-equal; the twin is not timed there. Also
+    the forward's training instance (with the log-sum-exp) in turns with
+    its serving instance."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
@@ -1890,7 +1955,9 @@ def flash_bwd_times(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(20269)
     out = {}
     for name, (B, S, H, Kv, hd) in (("pnpcoin-demo", DEMO_ATTN),
-                                    ("qwen3-0.6b", QWEN_F32_ATTN)):
+                                    ("qwen3-0.6b", QWEN_F32_ATTN),
+                                    ("qwen3-0.6b S=T=4096", CHUNKED_ATTN)):
+        chunked = (B, S, H, Kv, hd) == CHUNKED_ATTN
         q, k, v = (torch.randn(shape, generator=gen, device=dev) for shape in
                    ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
         o, lse = fa.flash_attention_lse_cuda(q, k, v, causal=True)
@@ -1910,16 +1977,41 @@ def flash_bwd_times(dev) -> dict:
         def sdpa():
             return torch.autograd.grad(sd_out, (qt, kt, vt), dot,
                                        retain_graph=True)
+        peak = {"kernel": peak_extra_bytes(kernel),
+                "sdpa_efficient": peak_extra_bytes(sdpa)}
         dq_sdpa = sdpa()[0].transpose(1, 2)
         dq = kernel()[0]
         sdpa_err = float((dq_sdpa - dq).abs().max())
         check(torch.allclose(dq_sdpa, dq, rtol=1e-4, atol=1e-4),
               f"SDPA's backward agrees with the kernel's dQ at {name} "
               f"({sdpa_err})")
+        del dq_sdpa
+        twin_err = None
+        if chunked:
+            got, again = kernel(), kernel()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash backward: two launches equal at {name}")
+            del again
+            want = ref.flash_attention_bwd_ref(
+                q[:1], k[:1], v[:1], o[:1], lse[:1], do[:1], causal=True)
+            twin_err = []
+            for g, w in zip(got, want):
+                err = float((g[:1] - w).abs().max())
+                scale = max(1.0, float(w.abs().max()))
+                twin_err.append(err)
+                check(err <= BWD_TOL * scale,
+                      f"flash backward vs plain on batch row 0 ({err}, "
+                      f"scale {scale}) at {name}")
+            del got, want
+            torch.cuda.empty_cache()
         ms = in_turns({"kernel": kernel, "sdpa_efficient": sdpa})
         dev_ms = graph_ms(kernel)
-        plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, causal=True), reps=1, rounds=1)
+        sdpa_dev_ms = sdpa_backward_graph_ms(qt, kt, vt, dot) \
+            if name == "pnpcoin-demo" else None
+        plain_ms = None if chunked else cuda_ms(
+            lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                causal=True),
+            reps=1, rounds=1)
         fwd = in_turns({
             "training_instance": lambda: fa.flash_attention_lse_cuda(
                 q, k, v, causal=True),
@@ -1936,6 +2028,7 @@ def flash_bwd_times(dev) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "library_ms": ms["sdpa_efficient"],
+            "library_ms_from_graph": sdpa_dev_ms,
             "library": "scaled_dot_product_attention backward, efficient "
                        "backend",
             "sdpa_dq_max_abs_err": sdpa_err,
@@ -1944,11 +2037,44 @@ def flash_bwd_times(dev) -> dict:
                                 f"max({t_ops * 1e3:.4g}, "
                                 f"{t_bytes * 1e3:.4g}) ms",
             "share_of_bound": bound / ms["kernel"],
+            "peak_bytes_over_inputs": peak,
+            "ds_cap_bytes": fb.DS_CAP_BYTES,
             "forward_training_instance_ms": fwd["training_instance"],
             "forward_serving_instance_ms": fwd["serving_instance"]}
-        del q, k, v, o, lse, do, qt, kt, vt, sd_out, dot, dq, dq_sdpa
+        if chunked:
+            out[name]["batch_row_0_vs_plain_max_abs_err"] = twin_err
+        del q, k, v, o, lse, do, qt, kt, vt, sd_out, dot, dq
         torch.cuda.empty_cache()
     return out
+
+
+def sdpa_backward_graph_ms(qt, kt, vt, dot, reps=10) -> float:
+    """SDPA's efficient backward on leaf tensors qt, kt, vt (B, H, S, hd)
+    with output gradient dot, causal, replayed from a CUDA graph of
+    ``reps`` backward calls (its forward runs once, outside the graph, on
+    the capturing stream, so autograd launches the backward there)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        # leaves and gradient made on the capturing stream too, so no node
+        # of the backward waits on the default stream
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (qt, kt, vt)]
+        grad = dot.clone()
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=True)
+        for _ in range(3):
+            torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    return cuda_ms(graph.replay, reps=1) / reps
 
 
 def train_step_split(dev) -> dict:
@@ -2181,7 +2307,8 @@ def main() -> int:
     from repro_torch.chain import Network, Node
     from repro_torch.core.jash import Jash, JashMeta, collatz_jash
     from repro_torch.core.ledger import merkle_root
-    from repro_torch.kernels import flash_attention, native, ref, sha256
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     native, ref, sha256)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20260)
@@ -2211,7 +2338,7 @@ def main() -> int:
           "native.stream_of names the current stream")
     ptxas = ptxas_usage(log)
     for name, lines in ptxas["kernels"].items():
-        if name.startswith("flash_fwd_kernel<f32"):
+        if name.startswith(("flash_fwd_kernel<f32", "flash_bwd_")):
             check(all(" 0 bytes spill stores" in ln for ln in lines
                       if "spill" in ln), f"{name}: ptxas reports no spills")
     emit({"phase": "environment", "gpu": smi,
@@ -2220,6 +2347,7 @@ def main() -> int:
           "python": sys.version.split()[0], "build_s": build_s,
           "ptxas": ptxas, "sass": sass_counts(lib),
           "flash_tc_resources": flash_tc_resources(),
+          "flash_bwd_resources": flash_bwd_resources(ptxas),
           "counted_ops": {"compression": OPS_COMPRESSION,
                           "merkle_parent": OPS_COMPRESSION
                           + OPS_PAD_COMPRESSION}})
@@ -2508,8 +2636,11 @@ def main() -> int:
                   pnpcoin_demo_shape=bwd_time["pnpcoin-demo"],
                   device_ms_from_graph=bwd_time["qwen3-0.6b"][
                       "device_ms_from_graph"],
+                  tile={f"hd={hd}": flash_attention_bwd.tile(hd)
+                        for hd in flash_attention_bwd.HEAD_DIMS},
                   path="training pnpcoin-demo (one launch a layer and "
-                       "microstep, two kernels each); times at qwen3-0.6b's "
+                       "microstep, three kernels each); times at "
+                       "qwen3-0.6b's "
                        "shape in float32",
                   replaces_note="no TPU kernel: the reference "
                                 "differentiates chunked_attention "

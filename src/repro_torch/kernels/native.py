@@ -118,8 +118,13 @@ def library() -> ctypes.CDLL:
     lib.pnp_flash_attention_fwd_lse.restype = ctypes.c_int
     lib.pnp_flash_attention_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                             vp, vp, i64, i64, i64, i32, i32,
-                                            i32, i32, i32, vp]
+                                            i32, i32, i32, i64, vp]
     lib.pnp_flash_attention_bwd.restype = ctypes.c_int
+    lib.pnp_flash_attention_bwd_workspace_words.argtypes = [
+        i64, i64, i64, i32, i32, i32, i32, i64]
+    lib.pnp_flash_attention_bwd_workspace_words.restype = ctypes.c_int64
+    lib.pnp_flash_attention_bwd_info.argtypes = [i32, vp]
+    lib.pnp_flash_attention_bwd_info.restype = ctypes.c_int
     lib.pnp_flash_attention_info.argtypes = [i32, vp]
     lib.pnp_flash_attention_info.restype = ctypes.c_int
     lib.pnp_flash_attention_tc_fwd.argtypes = [vp, vp, vp, vp, i64, i64, i64,

@@ -664,11 +664,27 @@ def test_a_journal_recovers_on_the_other_device(journaled, writer, reader):
 
 
 # -- the training slice: the flash backward and the training step -------------
-# (B, S, T, H, Kv, causal, window) at each head dim the backward takes
+# (B, S, T, H, Kv, causal, window) at each head dim the backward takes.
+# After the first seven, its tiles' edges (csrc/flash_attention_bwd.cu:
+# both passes 64 queries x 64 keys at hd 64 and 128, 32 x 16 at hd 32):
+# S and T of 1, a tile's size +- 1 and 2 BK + 1, S != T both ways without
+# the causal mask, windows across a tile's edge (and rows that see no
+# key), G = 1, 2 and 16 (MQA).
+# T = 1 only with S = 1: with one key, P = 1 and o = v, so the exact dQ
+# and dK are 0 and both the kernel and the twin return float32 rounding
+# of dO.v - dO.o, summed over S rows (at S = 257, hd 128, ~1e-5 apart)
 _BWD_CASES = [(2, 33, 33, 4, 2, True, 0), (1, 100, 100, 8, 1, True, 0),
               (2, 70, 150, 4, 2, False, 0), (1, 150, 70, 4, 4, True, 0),
               (2, 90, 90, 4, 4, True, 17), (4, 32, 32, 8, 4, True, 0),
-              (1, 64, 64, 2, 1, True, 32)]
+              (1, 64, 64, 2, 1, True, 32),
+              (1, 1, 1, 2, 1, True, 0), (2, 1, 129, 4, 2, False, 0),
+              (1, 15, 15, 2, 2, True, 0), (1, 31, 31, 4, 2, True, 0),
+              (1, 65, 65, 4, 1, True, 0), (1, 127, 127, 4, 2, True, 0),
+              (1, 129, 129, 4, 4, True, 0), (2, 129, 65, 4, 2, False, 0),
+              (1, 63, 129, 4, 2, False, 0), (1, 33, 17, 2, 1, False, 0),
+              (1, 257, 2, 2, 1, False, 0), (1, 200, 200, 2, 1, True, 70),
+              (1, 100, 40, 2, 1, True, 20), (1, 129, 129, 16, 1, True, 0),
+              (1, 65, 129, 16, 1, False, 33)]
 # |kernel - twin| <= BWD_TOL (1 + |twin|), float32
 BWD_TOL = 1e-5
 
@@ -690,6 +706,39 @@ def test_flash_backward_kernel_matches_its_twin(card, hd, case):
     again = flash_attention_bwd.flash_attention_bwd_cuda(
         q, k, v, o, lse, do, causal=causal, window=window)
     assert flash_attention_bwd.launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert torch.allclose(g, w, rtol=BWD_TOL, atol=BWD_TOL)
+
+
+@pytest.mark.parametrize("cap_tiles", [1, 3])
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("case", [(2, 200, 200, 4, 2, True, 0),
+                                  (1, 150, 260, 4, 1, False, 0),
+                                  (1, 300, 300, 2, 1, True, 70)])
+def test_flash_backward_in_chunks_of_key_tiles(card, monkeypatch, case, hd,
+                                               cap_tiles):
+    """dS tiles capped at about ``cap_tiles`` tiles of (batch row, head):
+    the key tiles go in chunks (1 tile: one key tile a chunk), dQ summed
+    chunk by chunk; within BWD_TOL of the twin and bit-equal twice."""
+    from repro_torch.kernels import flash_attention_bwd
+    B, S, T, H, Kv, causal, window = case
+    tile = flash_attention_bwd.tile(hd)["dkv_kernel"]
+    monkeypatch.setattr(flash_attention_bwd, "DS_CAP_BYTES",
+                        cap_tiles * B * H * tile["block_keys"]
+                        * tile["block_rows"] * 4)
+    gen = torch.Generator(device=card).manual_seed(hd + S + cap_tiles)
+    q, k, v = (torch.randn(shape, generator=gen, device=card) for shape in
+               ((B, S, H, hd), (B, T, Kv, hd), (B, T, Kv, hd)))
+    o, lse = flash_attention.flash_attention_lse_cuda(q, k, v, causal=causal,
+                                                      window=window)
+    do = torch.randn(o.shape, generator=gen, device=card)
+    got = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window)
     for g, a, w in zip(got, again, want):
