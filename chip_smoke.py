@@ -37,13 +37,15 @@ On one CUDA card it:
      mining path's three shapes, with events around 10 launches and
      replayed from a CUDA graph; the decay scan's tiled and one-thread-a-
      chain kernels in turns; a Merkle reduction of 2**20 leaves by events
-     and from a CUDA graph; the flash backward at pnpcoin-demo's and
+     and from a CUDA graph; the flash backward at pnpcoin-demo's two
+     training calls (B 4 x S 32 and the PoUW step's B 16 x S 128) and
      qwen3-0.6b's shapes and at qwen3-0.6b's heads with S = T = 4096 (past
      the cap on dS, in chunks of key tiles; held against the twin on
      batch row 0 and bit-equal twice) by events and from a graph, in
      turns with SDPA's memory-efficient backward (at pnpcoin-demo's also
      from a graph), with each call's peak device memory, and the
-     forward's training instance in turns with its serving instance);
+     forward's training instance in turns with its serving instance and
+     SDPA's efficient forward);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -73,7 +75,20 @@ On one CUDA card it:
      events into forward, backward and optimiser; the same 4 blocks on
      the CPU port (losses within 1e-3); and
      ``examples/torch_chain_train_model.py`` in a process of its own,
-     which must print the same heights, losses and digests;
+     which must print the same heights, losses and digests; then
+     ``PoUWTrainer`` behind ``TrainingWorkload`` at pnpcoin-demo's width,
+     each a 2-node network of 8 blocks verified by the peer on receive:
+     full mode at ``examples/train_pnp.py``'s defaults (batch 16 of 128
+     tokens, 8 miners), audited, recovered and reorged (``"part":
+     "pouw_full"``), and optimal (ES) mode at ``examples/es_search.py``'s
+     settings (32 candidates, sigma 0.02, a fixed batch), its accepted
+     loss never rising, then the example's 20 ``es_update`` steps
+     (``"pouw_es"``); each with the first block on the CPU port, the
+     launches of the forward's serving and training instances and the
+     backward, and the peak device memory; then
+     ``examples/torch_np_problems.py``'s network (3 SAT blocks, 4
+     GAN-inversion rounds over 2**10 latents, error below 1.0, equal
+     digests and books; ``"gan"``);
   6. serves three models at full width and depth through
      ``repro_torch.launch.serve`` (batch 8, 32 new tokens, bf16, random
      weights from a fixed seed): qwen3-0.6b (prompt 2048; flash attention),
@@ -101,6 +116,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -189,10 +205,31 @@ QWEN_F32_ATTN = (SERVE_BATCH, SERVE_PROMPT, 16, 8, 128)
 CHUNKED_ATTN = (SERVE_BATCH, 4096, 16, 8, 128)
 # pnpcoin-demo's chain: as examples/chain_train_model.py runs it
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_BLOCKS = 32, 4, 2, 4
+# proof-of-useful-work training through PoUWTrainer at pnpcoin-demo's
+# width: full mode at examples/train_pnp.py's defaults (batch 16 of 128
+# tokens, 8 miners, lr 1e-3, warmup max(blocks // 20, 5), total_steps the
+# blocks), and optimal (ES) mode at examples/es_search.py's settings
+# (batch 8 of 32 tokens, 32 candidates, sigma 0.02, a fixed batch, 8
+# miners); each a 2-node network of POUW_BLOCKS blocks
+POUW_SEQ, POUW_BATCH, POUW_MINERS, POUW_BLOCKS = 128, 16, 8, 8
+ES_SEQ, ES_BATCH, ES_POP, ES_SIGMA, ES_DEMO_STEPS = 32, 8, 32, 0.02, 20
+# the attention calls of a full-mode PoUW step and of an ES candidate's
+# score: (B, S, H, Kv, hd)
+POUW_ATTN = (POUW_BATCH, POUW_SEQ, 8, 4, 32)
+ES_ATTN = (ES_BATCH, ES_SEQ, 8, 4, 32)
+# torch_np_problems.py's network: SAT at 12 variables, 48 clauses (3
+# blocks), GAN inversion over 2**10 latents (4 rounds)
+NP_VARS, NP_CLAUSES, NP_SAT_BLOCKS, GAN_GRID_BITS, GAN_ROUNDS = \
+    12, 48, 3, 10, 4
 # training steps profiled in the last phase
 TRAIN_PROFILED = 3
 # |card loss - CPU loss| <= TRAIN_LOSS_TOL |CPU loss|, block by block
 TRAIN_LOSS_TOL = 1e-3
+# full-mode PoUW blocks replayed on the CPU port against the card's
+POUW_CPU_BLOCKS = 4
+# |card - CPU| <= ES_LOSS_TOL |CPU| for each ES candidate's loss: the
+# candidates' noise differs only where the two devices' log1p round apart
+ES_LOSS_TOL = 1e-5
 
 MAIN_BITS = 20
 # seconds of quiet at each end of a profiled window
@@ -1201,15 +1238,20 @@ def _counts() -> dict:
     """The hash kernels' launch counts and the verifier's hashlib
     fallbacks since the last ``_zero_counts``."""
     from repro_torch.core import verify
+    from repro_torch.kernels import flash_attention
     counts = {name: mod.launches for name, mod in _launch_counters().items()}
+    # of the CUDA-core flash launches, the training instance's
+    counts["flash_attention_training"] = flash_attention.lse_launches
     counts["hashlib_fallbacks"] = verify.hashlib_fallbacks
     return counts
 
 
 def _zero_counts() -> None:
     from repro_torch.core import verify
+    from repro_torch.kernels import flash_attention
     for mod in _launch_counters().values():
         mod.launches = 0
+    flash_attention.lse_launches = 0
     verify.hashlib_fallbacks = 0
 
 
@@ -1778,10 +1820,8 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
 # hd 64 and 128, 32 x 16 at hd 32): 1, a tile +- 1 and 2 BK + 1; GQA and
 # MQA (G = 1, 2, 4, 16), causal or not, windows across a tile's edge, S !=
 # T both ways, rows that see no key (S 100 over T 40 with a window of 20).
-# On those rows the forward's log-sum-exp is its sentinel, (-1e30 + log2
-# n) / log2(e), where the plain version's is -1e30 (ROADMAP.md §3): the
-# log-sum-exp is compared on the rows that see a key, the gradients on
-# every row
+# On those rows the forward's log-sum-exp is the plain version's sentinel,
+# -1e30; the log-sum-exp and the gradients are compared on every row
 BWD_CASES = [(2, 33, 33, 4, 2, True, 0), (1, 100, 100, 8, 1, True, 0),
              (2, 70, 150, 4, 2, False, 0), (1, 150, 70, 4, 4, True, 0),
              (2, 90, 90, 4, 4, True, 17), (4, 32, 32, 8, 4, True, 0),
@@ -1803,12 +1843,15 @@ def flash_bwd_vs_plain(dev) -> dict:
     log-sum-exp and output gradient, within ``BWD_TOL`` times each
     tensor's largest entry (at least 1), and bit-equal to a second
     launch: ``BWD_CASES`` at head dims 32, 64 and 128, then pnpcoin-demo's
-    training call and qwen3-0.6b's prefill shape in float32 (causal),
+    training calls (the model_train chain's, a full-mode PoUW step's and
+    an ES candidate's) and qwen3-0.6b's prefill shape in float32 (causal),
     where the kernel and the twin are also held against the twin's math
     in float64 (output and log-sum-exp recomputed in float64). The
     forward's training instance gives the output and log-sum-exp, its
-    output bit-equal to the serving instance's and its log-sum-exp within
-    1e-5 of the plain one's on the rows that see a key."""
+    output bit-equal to the serving instance's (and, at the paths' calls,
+    within ``FLASH_TOL`` of the plain one's), and its log-sum-exp within
+    1e-5 of the plain one's on every row (-1e30 on a row that sees no
+    key)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
@@ -1816,9 +1859,10 @@ def flash_bwd_vs_plain(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(20268)
     cases = [(B, S, T, H, Kv, hd, causal, window) for hd in (32, 64, 128)
              for B, S, T, H, Kv, causal, window in BWD_CASES]
-    for B, S, H, Kv, hd in (DEMO_ATTN, QWEN_F32_ATTN):
+    path_calls = (DEMO_ATTN, POUW_ATTN, ES_ATTN, QWEN_F32_ATTN)
+    for B, S, H, Kv, hd in path_calls:
         cases.append((B, S, S, H, Kv, hd, True, 0))
-    worst = {"abs": 0.0, "rel": 0.0, "lse": 0.0}
+    worst = {"abs": 0.0, "rel": 0.0, "lse": 0.0, "out": 0.0}
     float64 = {}
     for B, S, T, H, Kv, hd, causal, window in cases:
         label = f"B={B} S={S} T={T} H={H} Kv={Kv} hd={hd} causal={causal} " \
@@ -1830,19 +1874,21 @@ def flash_bwd_vs_plain(dev) -> dict:
         check(torch.equal(o, fa.flash_attention_cuda_core(
             q, k, v, causal=causal, window=window)),
             f"flash training instance's output = serving instance's, {label}")
+        if (B, S, H, Kv, hd) in path_calls and S == T:
+            want_o = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window)
+            out_err = float((o - want_o).abs().max())
+            worst["out"] = max(worst["out"], out_err)
+            check(torch.allclose(o, want_o, rtol=FLASH_TOL["float32"],
+                                 atol=FLASH_TOL["float32"]),
+                  f"flash training instance's output vs plain ({out_err}), "
+                  f"{label}")
+            del want_o
         want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
                                                window=window)
-        # rows that see a key: t in [s - window + 1, s] (or [0, T))
-        pos = torch.arange(S, device=dev)
-        first = (pos - window + 1).clamp(min=0) if window else 0 * pos
-        last = pos.clamp(max=T - 1) if causal else 0 * pos + T - 1
-        seen = first <= last
-        lse_err = float((lse - want_lse)[..., seen].abs().max()) \
-            if bool(seen.any()) else 0.0
-        check(torch.allclose(lse[..., seen], want_lse[..., seen], rtol=1e-5,
-                             atol=1e-5),
-              f"flash log-sum-exp vs plain on rows that see a key "
-              f"({lse_err}), {label}")
+        lse_err = float((lse - want_lse).abs().max())
+        check(torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5),
+              f"flash log-sum-exp vs plain ({lse_err}), {label}")
         do = torch.randn(o.shape, generator=gen, device=dev)
         got = fb.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
                                           window=window)
@@ -1882,6 +1928,7 @@ def flash_bwd_vs_plain(dev) -> dict:
             "max_abs_err": worst["abs"],
             "max_err_over_scale": worst["rel"],
             "lse_max_abs_err": worst["lse"],
+            "forward_output_max_abs_err": worst["out"],
             "qwen3_shape_dq_dk_dv_max_abs_err_vs_float64": float64}
 
 
@@ -1932,8 +1979,10 @@ def peak_extra_bytes(fn) -> int:
 
 
 def flash_bwd_times(dev) -> dict:
-    """The flash backward at pnpcoin-demo's training call, qwen3-0.6b's
-    prefill shape in float32 and the same heads at S = T = 4096 (past the
+    """The flash backward at pnpcoin-demo's training calls (the
+    model_train workload's, and a full-mode PoUW step's at batch 16 of 128
+    tokens), qwen3-0.6b's prefill shape in float32 and the same heads at
+    S = T = 4096 (past the
     cap on dS, so in chunks of key tiles), causal: by events (10 calls in
     a row) and replayed from a CUDA graph, in turns with SDPA's
     memory-efficient backward on the same float32 inputs (K and V repeated
@@ -1946,7 +1995,9 @@ def flash_bwd_times(dev) -> dict:
     (the twin's float32 scores of all 8 rows would take ~9 GB a tensor)
     and two launches must be bit-equal; the twin is not timed there. Also
     the forward's training instance (with the log-sum-exp) in turns with
-    its serving instance."""
+    its serving instance and SDPA's efficient forward, and the forward's
+    bound (2 products of the causal half; q, k, v read, o and the
+    log-sum-exp written once)."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
@@ -1955,6 +2006,7 @@ def flash_bwd_times(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(20269)
     out = {}
     for name, (B, S, H, Kv, hd) in (("pnpcoin-demo", DEMO_ATTN),
+                                    ("pnpcoin-demo PoUW", POUW_ATTN),
                                     ("qwen3-0.6b", QWEN_F32_ATTN),
                                     ("qwen3-0.6b S=T=4096", CHUNKED_ATTN)):
         chunked = (B, S, H, Kv, hd) == CHUNKED_ATTN
@@ -1962,6 +2014,7 @@ def flash_bwd_times(dev) -> dict:
                    ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
         o, lse = fa.flash_attention_lse_cuda(q, k, v, causal=True)
         do = torch.randn(o.shape, generator=gen, device=dev)
+        pairs = S * (S + 1) // 2
         qt = q.transpose(1, 2).contiguous().requires_grad_(True)
         kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
                   .contiguous().requires_grad_(True) for x in (k, v))
@@ -2012,12 +2065,21 @@ def flash_bwd_times(dev) -> dict:
             lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 causal=True),
             reps=1, rounds=1)
+        def sdpa_forward():
+            with torch.no_grad(), sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
         fwd = in_turns({
             "training_instance": lambda: fa.flash_attention_lse_cuda(
                 q, k, v, causal=True),
             "serving_instance": lambda: fa.flash_attention_cuda_core(
-                q, k, v, causal=True)})
-        pairs = S * (S + 1) // 2
+                q, k, v, causal=True),
+            "sdpa_efficient": sdpa_forward})
+        # the forward's bound: 2 products of the causal half, against q,
+        # k, v read and o, lse written once
+        f_ops = 2 * 2 * hd * pairs * B * H / F32_FLOPS_S
+        f_bytes = 4 * (2 * q.numel() + 2 * k.numel() + lse.numel()) \
+            / HBM_BYTES_S
         flops = 5 * 2 * hd * pairs * B * H
         nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
         t_ops, t_bytes = flops / F32_FLOPS_S, nbytes / HBM_BYTES_S
@@ -2040,7 +2102,11 @@ def flash_bwd_times(dev) -> dict:
             "peak_bytes_over_inputs": peak,
             "ds_cap_bytes": fb.DS_CAP_BYTES,
             "forward_training_instance_ms": fwd["training_instance"],
-            "forward_serving_instance_ms": fwd["serving_instance"]}
+            "forward_serving_instance_ms": fwd["serving_instance"],
+            "forward_library_ms": fwd["sdpa_efficient"],
+            "forward_bound_ms": max(f_ops, f_bytes) * 1e3,
+            "forward_bound_by": "operations" if f_ops > f_bytes
+                                else "bytes"}
         if chunked:
             out[name]["batch_row_0_vs_plain_max_abs_err"] = twin_err
         del q, k, v, o, lse, do, qt, kt, vt, sd_out, dot, dq
@@ -2293,6 +2359,416 @@ def model_train_path(dev) -> dict:
             "flash_launches_a_block": {"mined": per_block,
                                        "replayed": per_block},
             "launches": {k: mined[k] + recovered[k] + reorged[k]
+                         for k in ("sha256", "merkle", "flash_attention",
+                                   "flash_attention_bwd")}}
+
+def _part_counts(counts: dict) -> dict:
+    """A part's hand-kernel launches, the flash forward split into its
+    serving and training instances."""
+    return {"sha256": counts["sha256"], "merkle": counts["merkle"],
+            "flash_attention": counts["flash_attention"],
+            "flash_attention_serving": counts["flash_attention"]
+            - counts["flash_attention_training"],
+            "flash_attention_training": counts["flash_attention_training"],
+            "flash_attention_bwd": counts["flash_attention_bwd"],
+            "flash_attention_tc": counts["flash_attention_tc"]}
+
+
+def _steps_s(timed: dict) -> dict:
+    return {tag: {step: [s for k, s in steps if k == step]
+                  for step in ("mine", "verify", "reward")}
+            for tag, steps in timed.items()}
+
+
+def _pouw_chain(dev, make_trainer, what: str) -> dict:
+    """A 2-node network of ``TrainingWorkload`` nodes over
+    ``make_trainer(device)``, node 0 journalled, mining ``POUW_BLOCKS``
+    training blocks alternately, each verified by the peer on receive;
+    then both nodes audit their chains. Each node's mine, verify and reward
+    steps are timed, launches are counted over the chain and over the
+    audits apart, and the device's peak memory is reset at the start."""
+    import torch
+    from repro_torch.chain import ChainStore, Network, Node, TrainingWorkload
+    from repro_torch.train.steps import params_digest
+    timed = {}
+
+    def make_node(i, device, tag=None, **kw):
+        wl = TrainingWorkload(lambda: make_trainer(device))
+        timed[tag or f"node{i}"] = []
+        _timed_steps(wl, timed[tag or f"node{i}"])
+        return Node(node_id=i, classic_arg_bits=6, device=device,
+                    workloads={"training": wl}, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    journal = ChainStore()
+    _zero_counts()
+    t = time.perf_counter()
+    net = Network.create(2, node_factory=lambda i: make_node(
+        i, dev, **({"store": journal} if i == 0 else {})))
+    block_s = []
+    for b in range(POUW_BLOCKS):
+        res = net.mine(b % 2, "training")
+        check(not res.rejected_by and sorted(res.accepted_by) == [0, 1],
+              f"{what}: block {b} accepted by both nodes "
+              f"({res.accepted_by}, rejected by {res.rejected_by})")
+        block_s.append(res.receipt.block_time_s)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t
+    mined = _counts()
+    check(net.converged() and len({
+        tuple(sorted(n.book.balances.items())) for n in net.nodes}) == 1,
+        f"{what}: the nodes converged and their books are equal")
+    check(len({params_digest(n.workloads["training"].trainer.state)
+               for n in net.nodes}) == 1,
+          f"{what}: both nodes hold the same weights")
+    _zero_counts()
+    t = time.perf_counter()
+    check(all(n.audit_chain() for n in net.nodes),
+          f"{what}: both nodes audit their chains")
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t
+    return {"net": net, "journal": journal, "make_node": make_node,
+            "timed": timed, "block_s": block_s, "chain_s": chain_s,
+            "audit_s": audit_s, "mined": mined, "audited": _counts()}
+
+
+def _pouw_line(run: dict) -> dict:
+    """The fields a PoUW part's line shares: times and counts of its chain
+    and audits."""
+    return {"block_time_s": run["block_s"], "chain_s": run["chain_s"],
+            "steps_s_by_node": _steps_s(run["timed"]),
+            "audit_chain_s": run["audit_s"],
+            "counts_chain": _part_counts(run["mined"]),
+            "counts_audit": _part_counts(run["audited"])}
+
+
+def _recover_and_reorg(dev, net, journal, make_node, what: str) -> dict:
+    """Node 0 recovered from its journal; then the recovered node mines a
+    private training block while node 1 mines a Classic and a training
+    block, and the recovered node adopts the longer chain, unwinding its
+    private step. Launches of each step counted."""
+    import torch
+    from repro_torch.chain import Node
+    from repro_torch.train.steps import params_digest
+    a, b = net.nodes
+    _zero_counts()
+    t = time.perf_counter()
+    rec = Node.recover(journal, node=make_node(0, dev, tag="recovered"))
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t
+    recovered = _counts()
+    check(rec.last_recovery.adopted_height == a.ledger.height
+          and rec.ledger.tip_hash == a.ledger.tip_hash
+          and params_digest(rec.workloads["training"].trainer.state)
+          == params_digest(a.workloads["training"].trainer.state)
+          and rec.book.balances == a.book.balances,
+          f"{what}: the recovered chain, weights and books equal node 0's")
+    _zero_counts()
+    t = time.perf_counter()
+    rec.mine_block("training")
+    b.mine_block("classic")
+    public = b.mine_block("training")
+    check(rec.consider_chain(list(b.ledger.blocks), b.chain_payloads()),
+          f"{what}: the recovered node adopts the longer chain")
+    torch.cuda.synchronize()
+    reorg_s = time.perf_counter() - t
+    reorged = _counts()
+    trainer = rec.workloads["training"].trainer
+    check(trainer.ledger.height == public.payload.train_height + 1
+          and rec.ledger.tip_hash == b.ledger.tip_hash
+          and params_digest(trainer.state)
+          == params_digest(b.workloads["training"].trainer.state)
+          and rec.book.balances == b.book.balances,
+          f"{what}: the reorg unwound the private step; weights and books "
+          "equal the winning chain's")
+    return {"recover_s": recover_s, "reorg_s": reorg_s,
+            "counts_recover": _part_counts(recovered),
+            "counts_reorg": _part_counts(reorged)}
+
+
+def pouw_full_path(dev) -> dict:
+    """``PoUWTrainer`` in full mode behind ``TrainingWorkload``, as
+    ``examples/train_pnp.py`` runs it, at pnpcoin-demo's width: a 2-node
+    network mines ``POUW_BLOCKS`` blocks alternately, each verified by the
+    peer's replay; both nodes audit their chains (a replay trainer each);
+    node 0 is recovered from its journal and reorged. Launches, from the
+    code: a block is one step of 2 layers, one training-instance forward
+    and one backward a layer, on the miner and again on the peer (the
+    miner's self-check is the fast path), so 4 of each a network block;
+    the audits and the recovery 2 a block each; no serving launch. Then
+    the first ``POUW_CPU_BLOCKS`` blocks on the CPU port, their losses
+    against the card's block by block (from block 1 on, each loss follows
+    the blocks' backward and update before it)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.pow_train import PoUWTrainer
+    from repro_torch.train.steps import TrainHparams
+    cfg = get_config("pnpcoin-demo")
+    shape = InputShape("cli", POUW_SEQ, POUW_BATCH, "train")
+    hp = TrainHparams(peak_lr=1e-3, warmup_steps=max(POUW_BLOCKS // 20, 5),
+                      total_steps=POUW_BLOCKS)
+
+    def trainer(device):
+        return PoUWTrainer(cfg, shape, hp=hp, mode="full",
+                           n_miners=POUW_MINERS, device=device)
+
+    per_block = cfg.n_layers
+    run = _pouw_chain(dev, trainer, "pouw_full")
+    mined, audited = run["mined"], run["audited"]
+    want = 2 * per_block * POUW_BLOCKS
+    check(mined["flash_attention_training"] == mined["flash_attention"]
+          == mined["flash_attention_bwd"] == want
+          and mined["flash_attention_tc"] == mined["sha256"]
+          == mined["merkle"] == 0,
+          f"pouw_full chain: {want} training-instance forward and backward "
+          f"launches and no other, got {mined}")
+    check(audited["flash_attention_training"] == audited["flash_attention"]
+          == audited["flash_attention_bwd"] == want,
+          f"pouw_full audit: {want} launches of each, got {audited}")
+    rest = _recover_and_reorg(dev, run["net"], run["journal"],
+                              run["make_node"], "pouw_full")
+    check(rest["counts_recover"]["flash_attention_bwd"]
+          == per_block * POUW_BLOCKS,
+          f"pouw_full recovery: {per_block * POUW_BLOCKS} backward "
+          f"launches, got {rest['counts_recover']}")
+    peak = torch.cuda.max_memory_allocated()
+    card_losses = [p.loss for p in run["net"].nodes[0].chain_payloads()]
+    t = time.perf_counter()
+    cpu_losses = [r.loss for r in trainer("cpu").run(POUW_CPU_BLOCKS)]
+    cpu_s = time.perf_counter() - t
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(card_losses,
+                                                       cpu_losses))
+    check(loss_err <= TRAIN_LOSS_TOL, f"pouw_full: the first "
+          f"{POUW_CPU_BLOCKS} blocks' losses on the card "
+          f"{card_losses[:POUW_CPU_BLOCKS]} within {TRAIN_LOSS_TOL} of the "
+          f"CPU port's {cpu_losses}")
+    launches = {k: mined[k] + audited[k] + rest["counts_recover"][k]
+                + rest["counts_reorg"][k]
+                for k in ("sha256", "merkle", "flash_attention",
+                          "flash_attention_bwd")}
+    return {"phase": "workloads", "part": "pouw_full",
+            "config": f"pnpcoin-demo ({cfg.n_layers} layers, d_model "
+                      f"{cfg.d_model}, {cfg.n_heads} heads over "
+                      f"{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, "
+                      f"float32), full mode, batch {POUW_BATCH} x "
+                      f"{POUW_SEQ} tokens, {POUW_MINERS} miners, {hp}",
+            "attention_call": dict(zip("B S H Kv hd".split(), POUW_ATTN)),
+            **_pouw_line(run), **rest, "card_losses": card_losses,
+            "card_vs_cpu_losses": {"cpu": cpu_losses, "rel_err": loss_err},
+            "cpu_blocks_s": cpu_s, "peak_device_mb": peak / 1e6,
+            "launches": launches}
+
+
+def pouw_es_path(dev) -> dict:
+    """``PoUWTrainer`` in optimal (ES) mode behind ``TrainingWorkload``, as
+    ``examples/es_search.py`` runs it but at pnpcoin-demo's width: a 2-node
+    network mines ``POUW_BLOCKS`` blocks alternately on a fixed batch, each
+    verified by the peer's replay, and the accepted loss never rises
+    (candidate 0 is the incumbent); both nodes audit. Launches: one
+    serving-instance forward a layer and candidate, on the miner and on
+    the peer, and again in each node's audit; no training instance and no
+    backward. Then the example's ES-gradient demo, ``ES_DEMO_STEPS``
+    ``es_update`` steps, and the first block's search on a fresh trainer
+    on the card and on the CPU port: every candidate's loss within
+    ``ES_LOSS_TOL``, the same winner, and the card's equal to the chain's
+    first block."""
+    import torch
+    from repro_torch import random
+    from repro_torch.chain.workload import MINER_LANE
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import es
+    from repro_torch.core.pow_train import PoUWTrainer
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train.steps import make_eval_step, make_train_state
+    cfg = get_config("pnpcoin-demo")
+    shape = InputShape("es", ES_SEQ, ES_BATCH, "train")
+    eval_step = make_eval_step(cfg)
+
+    def trainer(device):
+        return PoUWTrainer(cfg, shape, mode="optimal", n_miners=POUW_MINERS,
+                           pop_size=ES_POP, sigma=ES_SIGMA, seed=0,
+                           fixed_batch=True, device=device)
+
+    run = _pouw_chain(dev, trainer, "pouw_es")
+    mined, audited = run["mined"], run["audited"]
+    want = 2 * cfg.n_layers * ES_POP * POUW_BLOCKS
+    for what, counts in (("chain", mined), ("audit", audited)):
+        check(counts["flash_attention"] == want
+              and counts["flash_attention_training"] == 0
+              and counts["flash_attention_bwd"] == counts["flash_attention_tc"]
+              == counts["sha256"] == counts["merkle"] == 0,
+              f"pouw_es {what}: {want} serving forward launches and no "
+              f"other, got {counts}")
+    payloads = run["net"].nodes[0].chain_payloads()
+    losses = [p.loss for p in payloads]
+    check(all(b <= a for a, b in zip(losses, losses[1:])),
+          f"pouw_es: the accepted loss never rises: {losses}")
+    check(all(p.winner // MINER_LANE == p.origin for p in payloads),
+          "pouw_es: each winner is a lane of its block's miner")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the example's ES-gradient demo: all submissions reused
+    _zero_counts()
+    t = time.perf_counter()
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=3)
+    params = make_train_state(cfg, random.key(1), dev).params
+    key, fixed = random.key(2), pipe.batch(0)
+    demo_before = float(eval_step(params, fixed))
+    for _ in range(ES_DEMO_STEPS):
+        key, sub = random.split(key)
+        step_losses, _ = es.es_block(eval_step, params, fixed, sub,
+                                     pop_size=ES_POP, sigma=ES_SIGMA)
+        params = es.es_update(params, sub, step_losses, sigma=ES_SIGMA,
+                              lr=0.05)
+    demo_after = float(eval_step(params, fixed))
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t
+    demo = _counts()
+    check(math.isfinite(demo_after) and demo["flash_attention"]
+          == cfg.n_layers * (ES_DEMO_STEPS * ES_POP + 2),
+          f"pouw_es demo: finite loss {demo_after}, "
+          f"{cfg.n_layers * (ES_DEMO_STEPS * ES_POP + 2)} serving launches, "
+          f"got {demo}")
+
+    # the first block's search (run_block's split of the trainer's key)
+    # on the card and on the CPU port
+    def first_search(device):
+        tr = trainer(device)
+        _, sub = random.split(tr.key)
+        got, best = es.es_block(eval_step, tr.state.params,
+                                tr.pipeline.batch(0), sub, pop_size=ES_POP,
+                                sigma=ES_SIGMA)
+        return got.cpu(), int(best)
+    card, card_best = first_search(dev)
+    t = time.perf_counter()
+    cpu, cpu_best = first_search("cpu")
+    cpu_s = time.perf_counter() - t
+    loss_err = float(((card - cpu).abs() / cpu.abs()).max())
+    check(loss_err <= ES_LOSS_TOL and card_best == cpu_best,
+          f"pouw_es: the first block's {ES_POP} candidate losses on the card "
+          f"within {ES_LOSS_TOL} of the CPU port's ({loss_err}), winner "
+          f"{card_best} against {cpu_best}")
+    check(float(card[card_best]) == losses[0]
+          and payloads[0].winner % MINER_LANE == card_best % POUW_MINERS,
+          f"pouw_es: the chain's first block ({losses[0]}, winner "
+          f"{payloads[0].winner}) is the card's search's "
+          f"({float(card[card_best])}, candidate {card_best})")
+    launches = {k: mined[k] + audited[k] + demo[k]
+                for k in ("sha256", "merkle", "flash_attention",
+                          "flash_attention_bwd")}
+    return {"phase": "workloads", "part": "pouw_es",
+            "config": f"pnpcoin-demo, optimal (ES) mode, batch {ES_BATCH} x "
+                      f"{ES_SEQ} tokens (fixed), {ES_POP} candidates, sigma "
+                      f"{ES_SIGMA}, {POUW_MINERS} miners",
+            "attention_call": dict(zip("B S H Kv hd".split(), ES_ATTN)),
+            **_pouw_line(run),
+            "losses": losses, "winners": [p.winner for p in payloads],
+            "first_block_search": {"card": card.tolist(),
+                                   "cpu": cpu.tolist(),
+                                   "max_rel_err": loss_err,
+                                   "winner": card_best},
+            "cpu_search_s": cpu_s, "peak_device_mb": peak / 1e6,
+            "es_update_demo": {"steps": ES_DEMO_STEPS, "before": demo_before,
+                               "after": demo_after, "seconds": demo_s},
+            "counts_demo": _part_counts(demo), "launches": launches}
+
+
+def gan_path(dev) -> dict:
+    """``examples/torch_np_problems.py``'s network on the card: 2 nodes,
+    ``NP_SAT_BLOCKS`` SAT blocks (12 variables, 48 clauses) and
+    ``GAN_ROUNDS`` GAN-inversion rounds over 2**10 latents, miners
+    alternating, each block verified by the peer; the example's
+    assertions (error below 1.0, equal digests and books, both audits),
+    and round 0's winner against the CPU port's; then one round over
+    2**``MAIN_BITS`` latents, timed twice. Launches: SAT mines
+    through SHA-256 and Merkle; a GAN round runs no hand kernel (its
+    generator is two small products), so its counts are read on their own."""
+    import torch
+    from repro_torch.chain import Network, Node
+    from repro_torch.chain.workloads import GanInversionWorkload, SatWorkload
+    from repro_torch.core.executor import run_optimal
+    timed = {}
+
+    def make_node(i):
+        wls = {"sat": SatWorkload(n_vars=NP_VARS, n_clauses=NP_CLAUSES,
+                                  seed=1, device=dev),
+               "gan": GanInversionWorkload(seed=0, grid_bits=GAN_GRID_BITS,
+                                           device=dev)}
+        for name, wl in wls.items():
+            timed[f"node{i} {name}"] = []
+            _timed_steps(wl, timed[f"node{i} {name}"])
+        return Node(node_id=i, classic_arg_bits=6, device=dev,
+                    workloads=wls)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    net = Network.create(2, node_factory=make_node)
+    _zero_counts()
+    sat_s = []
+    for b in range(NP_SAT_BLOCKS):
+        res = net.mine(b % 2, "sat")
+        check(not res.rejected_by, f"gan part: SAT block {b} accepted")
+        sat_s.append(res.receipt.block_time_s)
+    torch.cuda.synchronize()
+    sat_counts = _counts()
+    _zero_counts()
+    rounds = []
+    for b in range(GAN_ROUNDS):
+        res = net.mine(b % 2, "gan")
+        check(not res.rejected_by, f"gan part: round {b} accepted")
+        p = res.receipt.payload
+        rounds.append({"round": p.train_height, "best_arg": p.best_arg,
+                       "err": net.nodes[0].workloads["gan"]
+                       .inversion_error(),
+                       "block_time_s": res.receipt.block_time_s})
+    torch.cuda.synchronize()
+    gan_counts = _counts()
+    a, b = (n.workloads["gan"] for n in net.nodes)
+    err = a.inversion_error()
+    check(err < 1.0, f"gan part: inverted, error {err} below 1.0")
+    check(a.state_digest() == b.state_digest(),
+          "gan part: both nodes hold the same grid state")
+    check(net.converged() and all(n.audit_chain() for n in net.nodes)
+          and len({tuple(sorted(n.book.balances.items()))
+                   for n in net.nodes}) == 1,
+          "gan part: converged, audited, books equal")
+    check(all(gan_counts[k] == 0 for k in ("flash_attention", "sha256",
+                                            "merkle")),
+          f"gan part: a GAN round launches no hand kernel, got {gan_counts}")
+    cpu = GanInversionWorkload(seed=0, grid_bits=GAN_GRID_BITS, device="cpu")
+    cpu_arg = run_optimal(cpu._round_jash(), device="cpu").best_arg
+    check(cpu_arg == rounds[0]["best_arg"],
+          f"gan part: round 0's winner on the card {rounds[0]['best_arg']} "
+          f"is the CPU port's {cpu_arg}")
+    # a round over 2**MAIN_BITS latents, the mining paths' width: the
+    # grid's draws and the generator on the card, twice
+    wide = GanInversionWorkload(seed=0, grid_bits=MAIN_BITS, device=dev)
+    wide_s, wide_args = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wide_args.append(run_optimal(wide._round_jash(),
+                                     device=dev).best_arg)
+        torch.cuda.synchronize()
+        wide_s.append(time.perf_counter() - t)
+    check(wide_args[0] == wide_args[1],
+          f"gan part: a round over 2**{MAIN_BITS} latents finds one winner "
+          f"twice, got {wide_args}")
+    return {"phase": "workloads", "part": "gan",
+            "config": f"SAT {NP_VARS} variables x {NP_CLAUSES} clauses, "
+                      f"{NP_SAT_BLOCKS} blocks; GAN inversion d_z 8, d_x "
+                      f"32, 2**{GAN_GRID_BITS} latents, {GAN_ROUNDS} rounds",
+            "sat_block_time_s": sat_s, "rounds": rounds,
+            "inversion_error": err, "round_0_best_arg_cpu": cpu_arg,
+            f"round_over_2**{MAIN_BITS}_latents_s": wide_s,
+            "steps_s_by_node": _steps_s(timed),
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "counts_sat": _part_counts(sat_counts),
+            "counts_gan": _part_counts(gan_counts),
+            "launches": {k: sat_counts[k] + gan_counts[k]
                          for k in ("sha256", "merkle", "flash_attention",
                                    "flash_attention_bwd")}}
 
@@ -2567,7 +3043,10 @@ def main() -> int:
                       ("docking", lambda: docking_path(dev)),
                       ("journal", lambda: journal_path(dev, job)),
                       ("quickstart", quickstart_path),
-                      ("model_train", lambda: model_train_path(dev))):
+                      ("model_train", lambda: model_train_path(dev)),
+                      ("pouw_full", lambda: pouw_full_path(dev)),
+                      ("pouw_es", lambda: pouw_es_path(dev)),
+                      ("gan", lambda: gan_path(dev))):
         t = time.perf_counter()
         paths[name] = run()
         emit({**paths[name], "seconds": time.perf_counter() - t, "gpu": smi})
@@ -2628,20 +3107,31 @@ def main() -> int:
                                          "bound_by", "library_ms")},
                 "shape": times["shape"], "matched": True, **extra}
     train = paths["model_train"]
-    check(train["launches"]["flash_attention_bwd"] > 0,
-          "the flash backward launched on the training path")
+    training_paths = ("model_train", "pouw_full", "pouw_es")
+    for name in training_paths:
+        check(paths[name]["launches"]["flash_attention"] > 0,
+              f"the flash forward launched on the {name} path")
+    for name in ("model_train", "pouw_full"):
+        check(paths[name]["launches"]["flash_attention_bwd"] > 0,
+              f"the flash backward launched on the {name} path")
+    bwd_by_path = {name: paths[name]["launches"]["flash_attention_bwd"]
+                   for name in training_paths}
+    fwd_by_path = {name: paths[name]["launches"]["flash_attention"]
+                   for name in training_paths}
     bwd_row = row("flash_attention_bwd", "flash_attention_bwd",
-                  "flash_attention_bwd.cu", "", train["launches"][
-                      "flash_attention_bwd"], bwd_time["qwen3-0.6b"],
+                  "flash_attention_bwd.cu", "", sum(bwd_by_path.values()),
+                  bwd_time["qwen3-0.6b"],
                   pnpcoin_demo_shape=bwd_time["pnpcoin-demo"],
+                  pouw_shape=bwd_time["pnpcoin-demo PoUW"],
+                  launches_by_path=bwd_by_path,
                   device_ms_from_graph=bwd_time["qwen3-0.6b"][
                       "device_ms_from_graph"],
                   tile={f"hd={hd}": flash_attention_bwd.tile(hd)
                         for hd in flash_attention_bwd.HEAD_DIMS},
-                  path="training pnpcoin-demo (one launch a layer and "
+                  path="training pnpcoin-demo (model_train, and "
+                       "PoUWTrainer's full mode; one launch a layer and "
                        "microstep, three kernels each); times at "
-                       "qwen3-0.6b's "
-                       "shape in float32",
+                       "qwen3-0.6b's shape in float32",
                   replaces_note="no TPU kernel: the reference "
                                 "differentiates chunked_attention "
                                 "(jax.grad)")
@@ -2673,11 +3163,14 @@ def main() -> int:
                 "recurrentgemma-2b": rg["flash_attention_tc"]}),
         row("flash_attention_fwd", "flash_attention", "flash_attention.cu",
             "flash_attention.py:28", sum(small_flash.values())
-            + train["launches"]["flash_attention"],
+            + sum(fwd_by_path.values()),
             core_f32["qwen3-0.6b"],
             training_instance={
                 key: {"ms": t["forward_training_instance_ms"],
-                      "serving_instance_ms": t["forward_serving_instance_ms"]}
+                      "serving_instance_ms": t["forward_serving_instance_ms"],
+                      "library_ms": t["forward_library_ms"],
+                      "bound_ms": t["forward_bound_ms"],
+                      "bound_by": t["forward_bound_by"]}
                 for key, t in bwd_time.items()},
             pnpcoin_demo_shape=core_f32["pnpcoin-demo"],
             tile={f"hd={hd}": flash_attention.tile(hd)
@@ -2688,9 +3181,13 @@ def main() -> int:
             path="float32 (and hd 32): the reduced float32 qwen3-0.6b (2) "
                  "and recurrentgemma-2b (1) served, pnpcoin-demo trained "
                  "(its training instance, which saves the row "
-                 "log-sum-exp); times in float32 against SDPA in float32",
-            launches_by_path={**small_flash, "model_train": train[
-                "launches"]["flash_attention"]}),
+                 "log-sum-exp: model_train, pouw_full) and its ES "
+                 "candidates scored (the serving instance: pouw_es); "
+                 "times in float32 against SDPA in float32",
+            launches_by_path={**small_flash, **fwd_by_path},
+            training_instance_launches_by_path={
+                name: paths[name]["counts_chain"]["flash_attention_training"]
+                for name in ("pouw_full", "pouw_es")}),
         bwd_row,
         row("decay_scan", "decay_scan", "decay_scan.cu", "decay_scan.py:21",
             rg["decay_scan"], rec_times["decay_scan"],

@@ -1,6 +1,5 @@
 """``repro_torch.chain`` — the public Node/Network API over the PNPCoin
-loop, ported from ``repro.chain`` for the full, optimal and classic
-workloads::
+loop, ported from ``repro.chain``::
 
     from repro_torch.chain import Node
     node = Node()                     # mines on the CUDA card
@@ -12,8 +11,11 @@ durable append-only journal of everything a ``Node(store=...)`` commits,
 byte for byte the reference's, and ``Node.recover`` rebuilds a node from
 it after a crash (truncating torn/corrupted tails instead of failing).
 
-``repro_torch.chain.workloads`` holds the integer application families,
-SAT (certificate-asymmetric) and docking (consensus-bound data bundle).
+``TrainingWorkload`` chains ``core.pow_train.PoUWTrainer`` blocks (full
+data-parallel SGD or ES search), verified by re-execution on receive.
+``repro_torch.chain.workloads`` holds the application families: SAT
+(certificate-asymmetric), GAN inversion (stateful latent search), docking
+(consensus-bound data bundle) and real-model training.
 """
 from repro_torch.chain.network import BroadcastResult, Network
 from repro_torch.chain.node import (BlockReceipt, BlockRecord, Node,
@@ -22,8 +24,8 @@ from repro_torch.chain.store import (ChainStore, collect_jash_fns,
                                      payload_checksum)
 from repro_torch.chain.workload import (
     BlockContext, BlockPayload, ChainError, ClassicSha256Workload,
-    JashFullWorkload, JashOptimalWorkload, Workload, certificate_digest,
-    verify_chain_batched,
+    JashFullWorkload, JashOptimalWorkload, TrainingWorkload, Workload,
+    certificate_digest, verify_chain_batched,
 )
 
 __all__ = [
@@ -41,6 +43,7 @@ __all__ = [
     "Node",
     "NodeState",
     "RecoveryReport",
+    "TrainingWorkload",
     "VerifyCache",
     "Workload",
     "certificate_digest",

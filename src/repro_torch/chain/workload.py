@@ -1,5 +1,6 @@
 """The ``Workload`` protocol: what a block's useful work *is*. The port of
-``repro/chain/workload.py`` for the full, optimal and classic payloads.
+``repro/chain/workload.py``: the full, optimal, classic and training
+payloads.
 
 Each is a ``Workload``: ``prepare(ctx) -> PreparedWork`` (resolve the
 published jash against the block's work target), ``mine(work) ->
@@ -503,8 +504,152 @@ class ClassicSha256Workload(JashOptimalWorkload):
         cannot be serialized, so decoding resolves it by name — the
         classic base jash is rebuilt locally and its (stable-identity)
         function registered under its wire name.  Workloads whose
-        verification never executes ``payload.jash.fn`` (SAT, docking)
-        need no such hook."""
+        verification never executes ``payload.jash.fn`` (SAT, GAN
+        inversion, docking, training) need no such hook."""
         if self._base is None:
             self._base = classic_jash()
         return {self._base.name: self._base.fn}
+
+
+# ---------------------------------------------------------------------------
+# training (PoUW) mode
+# ---------------------------------------------------------------------------
+
+
+class TrainingWorkload:
+    """The §1 flagship payload: each block is one (or ``block_microsteps``)
+    deterministic train step(s) of a ``core.pow_train.PoUWTrainer``; the
+    post-step state digest is the chained commitment.
+
+    Verification *is* re-execution: a peer receiving a training block
+    advances its own (identically seeded) trainer one block and compares
+    digests bit for bit (§3 req. 2), so the audit doubles as state sync
+    and every node holds the model the chain says it should. A failed
+    verify rolls the local trainer back, leaving state untouched.
+    """
+
+    name = "training"
+
+    def __init__(self, trainer_factory: Callable[[], object]) -> None:
+        self._factory = trainer_factory
+        self._trainer = None
+        self._self_check: Optional[BlockPayload] = None
+
+    @property
+    def trainer(self):
+        if self._trainer is None:
+            self._trainer = self._factory()
+        return self._trainer
+
+    def reset(self) -> None:
+        """Back to genesis: the next access rebuilds the trainer from the
+        factory (deterministic by seed). Fork choice calls this so an
+        adopted chain is replayed from scratch and discarded local
+        training blocks are truly unwound."""
+        self._trainer = None
+        self._self_check = None
+
+    def is_pristine(self) -> bool:
+        """True while the trainer has never been built: a snapshot of this
+        state is just "reset me", so fork choice can checkpoint a node
+        that has never mined or verified a training block without paying
+        for a model build."""
+        return self._trainer is None
+
+    # -- the trainer replaces its state's tensors on every block, never
+    #    changes them in place, so a snapshot holds references; the
+    #    internal credit book is copied so a rolled-back verify mints
+    #    nothing --------------------------------------------------------
+    def snapshot(self):
+        t = self.trainer
+        return (t.state, t.key, list(t.ledger.blocks), list(t.history),
+                dict(t.book.balances), t.book.total_issued)
+
+    def restore(self, snap) -> None:
+        t = self.trainer
+        t.state, t.key = snap[0], snap[1]
+        # copies, not the snapshot's own containers: ringed fork-choice
+        # checkpoints outlive a restore, and the live trainer appends to
+        # its ledger, history and book
+        t.ledger.blocks = list(snap[2])
+        t.history = list(snap[3])
+        t.book.balances = dict(snap[4])
+        t.book.total_issued = snap[5]
+
+    def prepare(self, ctx: BlockContext) -> PreparedWork:
+        """The published jash is the reviewed train step (the trainer
+        re-derives the block's batch from (seed, height), so there is no
+        per-block work sizing)."""
+        return PreparedWork(ctx, self.trainer.step_jash)
+
+    def mine(self, work: PreparedWork) -> BlockPayload:
+        """Advance the local trainer one block and commit the post-step
+        state digest. If this block later loses fork choice,
+        ``consider_chain`` unwinds it via ``reset()`` and a replay of the
+        adopted chain."""
+        ctx = work.ctx
+        t = self.trainer
+        rec = t.run_block()
+        blk = t.ledger.blocks[rec.height]
+        self._self_check = payload = BlockPayload(
+            workload=self.name, jash_id=blk.jash_id,
+            merkle_root=blk.merkle_root, n_results=blk.n_results,
+            winner=(None if blk.winner is None
+                    else global_miner(ctx.node_id, blk.winner)),
+            best_res=blk.best_res, state_digest=rec.state_digest,
+            origin=ctx.node_id, block_reward=ctx.block_reward,
+            loss=rec.loss, train_height=rec.height, n_miners=t.n_miners)
+        return payload
+
+    def verify(self, payload: BlockPayload) -> bool:
+        """Stateful re-execution: a payload at the trainer's own height
+        advances the local trainer one block and compares state digests
+        and roots bit for bit; a mismatch restores the pre-verify snapshot
+        (trainer state, history and credit book). Payloads below the local
+        height check against history plus an incremental replay
+        (``audit_block``), except the one-shot fast path for the payload
+        this process just mined."""
+        t = self.trainer
+        h = payload.train_height
+        if h is None or h > t.ledger.height:
+            return False                      # out of order: can't replay
+        if payload.jash_id != t.step_jash.source_id():
+            return False                      # forged jash id
+        if (payload.winner is not None
+                and payload.winner // MINER_LANE != payload.origin):
+            return False                      # ES winner outside its lane
+        if h < t.ledger.height:
+            # Already applied here. The node's immediate self-check of a
+            # block it just mined is a one-shot fast path (the digest was
+            # computed a moment ago; a replay adds no assurance and would
+            # double the training). Every other call (audit, receive,
+            # fork choice) checks history and re-executes on the cached
+            # incremental replay trainer (§3 req. 2).
+            fresh = payload is self._self_check
+            self._self_check = None
+            return (t.history[h].state_digest == payload.state_digest
+                    and t.ledger.blocks[h].merkle_root
+                    == payload.merkle_root
+                    and (fresh or t.audit_block(h)))
+        snap = self.snapshot()
+        rec = t.run_block()                   # bit-exact re-execution
+        ok = (rec.state_digest == payload.state_digest
+              and t.ledger.blocks[h].merkle_root == payload.merkle_root)
+        if not ok:
+            self.restore(snap)
+        return ok
+
+    def reward(self, book: CreditBook, payload: BlockPayload
+               ) -> RewardEntries:
+        """Full-mode training splits the reward across the origin's
+        ``n_miners`` lanes; ES (optimal) training pays the winning lane.
+        Derived from the payload alone, so rebuilt books agree after a
+        fork is adopted."""
+        staged = CreditBook()
+        if payload.winner is not None:        # optimal (ES) trainer mode
+            reward_optimal(staged, payload.winner, payload.block_reward)
+        else:                                 # full: split across miners
+            submitters = [global_miner(payload.origin, m)
+                          for m in range(payload.n_miners)]
+            reward_full(staged, submitters, payload.block_reward)
+        return _apply_rewards(book, staged)

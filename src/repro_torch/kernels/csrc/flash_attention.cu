@@ -426,10 +426,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (qp >= S) continue;
         if constexpr (LSE) {
             // m and l are the row's own on all 16 of its lanes; in the log2
-            // domain the row's log-sum-exp is m + log2 l
+            // domain the row's log-sum-exp is m + log2 l. A row that saw no
+            // key keeps m = NEG_INF and writes it, as the plain version does
             if (tx == 0)
                 lse[((size_t)b * H + h) * S + qp] =
-                    (m[i] + log2f(l[i])) * (1.f / LOG2E);
+                    m[i] == NEG_INF ? NEG_INF
+                                    : (m[i] + log2f(l[i])) * (1.f / LOG2E);
         }
         const float inv = 1.f / fmaxf(l[i], 1e-20f);
         T* dst = o + ((size_t)b * S + qp) * q_stride + (size_t)h * HD + VW * tx;

@@ -31,9 +31,11 @@ TRAIN_HEAD_DIMS = flash_attention_bwd.HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the CUDA-core kernel since the last reset (a run shows its
-# path went through the kernel by reading this; only the launch below adds
-# to it). The tensor-core kernel counts in ``flash_attention_tc.launches``.
+# path went through the kernel by reading this; only the launches below add
+# to it), and of those its training instance's (``flash_attention_lse_cuda``)
+# alone. The tensor-core kernel counts in ``flash_attention_tc.launches``.
 launches = 0
+lse_launches = 0
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
@@ -102,7 +104,7 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
     lse (B, H, S)), lse each row's log-sum-exp of its scaled, masked scores
     in natural-log units. The output is the serving instance's, bit for
     bit."""
-    global launches
+    global launches, lse_launches
     native.check_qkv("flash_attention_lse_cuda", q, k, v, window,
                      {torch.float32: 0}, TRAIN_HEAD_DIMS)
     B, S, H, hd = q.shape
@@ -116,6 +118,7 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
                 lse.data_ptr(), B, S, T, H, Kv, hd, int(causal), int(window),
                 native.stream_of(q))
         launches += 1
+        lse_launches += 1
         native.check_launch("flash_attention_lse_cuda", rc)
     return out, lse
 

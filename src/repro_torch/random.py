@@ -8,16 +8,23 @@ trains on:
 
     key(seed)             -> key (the words of ``jax.random.key(seed)``)
     split(key, num)       -> (num, 2) keys
-    fold_in(key, data)    -> key
+    fold_in(key, data)    -> key, or keys (*data.shape, 2) for a tensor
     bits(key, shape)      -> uint32 words (as int64)
     randint(key, shape, minval, maxval)  -> int32
     uniform(key, shape, minval, maxval)  -> float32
     bernoulli(key, p, shape)             -> bool
     normal(key, shape)                   -> float32
+    normal_concat(keys, sizes)           -> float32, one draw per key
 
 A key is an int64 tensor of shape (2,) holding two 32-bit words. Words
 live in int64 and are masked to 32 bits after every operation that can
 carry past them, since torch's uint32 lacks shifts, adds and remainders.
+``fold_in`` also takes a tensor of data, and ``bits`` and ``normal`` a
+batch of keys (..., 2), drawing ``shape`` under each: each row equals the
+call on its own key bit for bit, as ``jax.vmap`` of the scalar call
+gives. ``normal_concat`` draws on the device it is given (ES noise on the
+card): the integer words are the same there, but ``normal``'s ``log1p``
+may round differently on another device.
 
 The stream is the one JAX draws with ``jax_threefry_partitionable=True``
 (the default of the JAX releases the reference's tests run on; older
@@ -38,8 +45,11 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.device import DeviceLike
+
 MASK32 = 0xFFFFFFFF
 Shape = Union[int, Sequence[int]]
+Word = Union[int, torch.Tensor]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -53,10 +63,11 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) & MASK32) | (x >> (32 - r))
 
 
-def threefry2x32(k1: int, k2: int, x1: torch.Tensor,
+def threefry2x32(k1: Word, k2: Word, x1: torch.Tensor,
                  x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32 with 20 rounds of counter words (x1, x2) under key
-    (k1, k2): the two output words, as int64 holding 32 bits."""
+    (k1, k2), ints or int64 tensors broadcasting against the counters: the
+    two output words, as int64 holding 32 bits."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = (x1 + ks[0]) & MASK32
     x2 = (x2 + ks[1]) & MASK32
@@ -75,10 +86,24 @@ def _words(key: torch.Tensor) -> Tuple[int, int]:
     return int(key[0]), int(key[1])
 
 
-def _counters(shape: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+def _batch_words(key: torch.Tensor, ndim: int) -> Tuple[Word, Word]:
+    """One key's words as ints, or a batch of keys (..., 2) as int64
+    tensors (..., 1 x ndim), to broadcast against the counters of an
+    ``ndim``-dim draw."""
+    if key.dim() == 1:
+        return _words(key)
+    if key.shape[-1] != 2:
+        raise ValueError(f"keys are (..., 2) words, got shape "
+                         f"{tuple(key.shape)}")
+    words = key.reshape(*key.shape[:-1], *([1] * ndim), 2)
+    return words[..., 0], words[..., 1]
+
+
+def _counters(shape: Tuple[int, ...], device: torch.device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each element's flat index as (hi, lo) 32-bit words."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
     return (idx >> 32).reshape(shape), (idx & MASK32).reshape(shape)
 
 
@@ -92,21 +117,30 @@ def key(seed: int) -> torch.Tensor:
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     """``jax.random.split``: keys of shape ``(*num, 2)``."""
     shape = _shape(num)
-    b1, b2 = threefry2x32(*_words(key), *_counters(shape))
+    b1, b2 = threefry2x32(*_words(key), *_counters(shape, key.device))
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+def fold_in(key: torch.Tensor,
+            data: Union[int, torch.Tensor]) -> torch.Tensor:
     """``jax.random.fold_in``: the key hashed with ``data``'s low 32 bits
-    as the counter (0, data)."""
+    as the counter (0, data). For an integer tensor of data, keys of shape
+    (*data.shape, 2) on its device, each the key of one datum."""
+    if isinstance(data, torch.Tensor):
+        lo = data.to(torch.int64) & MASK32
+        return torch.stack(threefry2x32(*_words(key), torch.zeros_like(lo),
+                                        lo), dim=-1)
     zero = torch.zeros(1, dtype=torch.int64)
     b1, b2 = threefry2x32(*_words(key), zero, zero + (int(data) & MASK32))
     return torch.cat([b1, b2])
 
 
 def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """``jax.random.bits`` at 32 bits: uint32 words as int64."""
-    b1, b2 = threefry2x32(*_words(key), *_counters(_shape(shape)))
+    """``jax.random.bits`` at 32 bits: uint32 words as int64, of shape
+    (*batch, *shape) for keys (*batch, 2)."""
+    shape = _shape(shape)
+    b1, b2 = threefry2x32(*_batch_words(key, len(shape)),
+                          *_counters(shape, key.device))
     return b1 ^ b2
 
 
@@ -127,19 +161,24 @@ def randint(key: torch.Tensor, shape: Shape, minval: int,
     return (off + minval).to(torch.int32)
 
 
-def _unit(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
-    """Floats in [0, 1): 23 random mantissa bits under exponent 0, less
-    one."""
-    mant = (bits(key, shape) >> 9) | 0x3F800000
+def _unit(words: torch.Tensor) -> torch.Tensor:
+    """Floats in [0, 1) from 32 random bits: 23 mantissa bits under
+    exponent 0, less one."""
+    mant = (words >> 9) | 0x3F800000
     return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def _in_range(unit: torch.Tensor, minval: float,
+              maxval: float) -> torch.Tensor:
+    lo = torch.tensor(minval, dtype=torch.float32, device=unit.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=unit.device)
+    return torch.maximum(lo, unit * (hi - lo) + lo)
 
 
 def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32."""
-    lo = torch.tensor(minval, dtype=torch.float32)
-    hi = torch.tensor(maxval, dtype=torch.float32)
-    return torch.maximum(lo, _unit(key, _shape(shape)) * (hi - lo) + lo)
+    return _in_range(_unit(bits(key, _shape(shape))), minval, maxval)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
@@ -166,19 +205,41 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     w = -torch.log1p(-x * x)
     small = w < 5.0
     w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
-    f32 = torch.float32
-    p = torch.where(small, torch.tensor(_ERFINV_SMALL[0], dtype=f32),
-                    torch.tensor(_ERFINV_LARGE[0], dtype=f32))
+
+    def const(c):
+        return torch.tensor(c, dtype=torch.float32, device=x.device)
+    p = torch.where(small, const(_ERFINV_SMALL[0]), const(_ERFINV_LARGE[0]))
     for c_small, c_large in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
-        c = torch.where(small, torch.tensor(c_small, dtype=f32),
-                        torch.tensor(c_large, dtype=f32))
+        c = torch.where(small, const(c_small), const(c_large))
         p = (c.double() + p.double() * w.double()).float()
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
+def _normal_of_bits(words: torch.Tensor) -> torch.Tensor:
+    """sqrt(2) erf_inv(u), u uniform in (-1, 1) from 32 random bits."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0))
+    u = _in_range(_unit(words), float(lo), 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32,
+                        device=u.device) * erf_inv(u)
+
+
 def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) erf_inv(u) for u uniform
-    in (-1, 1)."""
-    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0))
-    u = uniform(key, shape, float(lo), 1.0)
-    return torch.tensor(math.sqrt(2), dtype=torch.float32) * erf_inv(u)
+    in (-1, 1); of shape (*batch, *shape) for keys (*batch, 2)."""
+    return _normal_of_bits(bits(key, shape))
+
+
+def normal_concat(keys: torch.Tensor, sizes: Sequence[int],
+                  device: DeviceLike = None) -> torch.Tensor:
+    """``normal(keys[i], (sizes[i],))`` for each of the (L, 2) keys,
+    concatenated: many keys' draws of different sizes in one pass (each
+    element's counter is its index within its own draw)."""
+    dev = torch.device(device) if device is not None else keys.device
+    sizes_t = torch.tensor(list(sizes), dtype=torch.int64, device=dev)
+    starts = torch.cumsum(sizes_t, 0) - sizes_t
+    idx = torch.arange(int(sizes_t.sum()), dtype=torch.int64, device=dev)
+    idx = idx - torch.repeat_interleave(starts, sizes_t)
+    k1, k2 = (torch.repeat_interleave(keys[:, w].to(dev), sizes_t)
+              for w in (0, 1))
+    b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK32)
+    return _normal_of_bits(b1 ^ b2)

@@ -117,10 +117,30 @@ def _unflatten(tree: Any, leaves: Iterator[torch.Tensor]) -> Any:
     return next(leaves)
 
 
+def make_update(hp: TrainHparams = TrainHparams()
+                ) -> Callable[[Any, Any, AdamWState],
+                              Tuple[Any, AdamWState, torch.Tensor]]:
+    """The training step's second half: ``(params, grads, opt) ->
+    (params, opt, lr)``, the cosine schedule at the next step and AdamW."""
+
+    def update(params: Any, grads: Any, opt: AdamWState):
+        with torch.no_grad():
+            lr = cosine_schedule(opt.step + 1, peak_lr=hp.peak_lr,
+                                 warmup_steps=hp.warmup_steps,
+                                 total_steps=hp.total_steps)
+            new_params, new_opt = adamw_update(
+                params, grads, opt, lr, weight_decay=hp.weight_decay,
+                grad_clip=hp.grad_clip)
+        return new_params, new_opt, lr
+
+    return update
+
+
 def make_train_step(cfg: ModelConfig, hp: TrainHparams = TrainHparams()
                     ) -> Callable[[TrainState, Dict],
                                   Tuple[TrainState, Dict]]:
     model = build_model(cfg)
+    update = make_update(hp)
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
@@ -132,13 +152,8 @@ def make_train_step(cfg: ModelConfig, hp: TrainHparams = TrainHparams()
             # raises here instead of leaving a weight unchanged
             grads = torch.autograd.grad(loss, tree_leaves(params))
         grads = _unflatten(params, iter(grads))
-        with torch.no_grad():
-            lr = cosine_schedule(state.opt.step + 1, peak_lr=hp.peak_lr,
-                                 warmup_steps=hp.warmup_steps,
-                                 total_steps=hp.total_steps)
-            new_params, opt = adamw_update(
-                tree_map(torch.Tensor.detach, params), grads, state.opt, lr,
-                weight_decay=hp.weight_decay, grad_clip=hp.grad_clip)
+        new_params, opt, lr = update(tree_map(torch.Tensor.detach, params),
+                                     grads, state.opt)
         out = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
                "aux": metrics["aux"].detach(), "lr": lr}
         return TrainState(params=new_params, opt=opt), out

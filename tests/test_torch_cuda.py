@@ -699,6 +699,9 @@ def test_flash_backward_kernel_matches_its_twin(card, hd, case):
                ((B, S, H, hd), (B, T, Kv, hd), (B, T, Kv, hd)))
     o, lse = flash_attention.flash_attention_lse_cuda(q, k, v, causal=causal,
                                                       window=window)
+    # every row, those that see no key too (-1e30 in both)
+    assert torch.allclose(lse, ref.flash_attention_lse_ref(
+        q, k, v, causal=causal, window=window), rtol=1e-5, atol=1e-5)
     do = torch.randn(o.shape, generator=gen, device=card)
     before = flash_attention_bwd.launches
     got = flash_attention_bwd.flash_attention_bwd_cuda(
@@ -868,3 +871,85 @@ def test_a_training_step_runs_the_hand_attention_kernels_only(card):
     assert not [n for n in names if any(
         lib in n for lib in ("pytorch_flash", "fmha", "efficient_attention",
                              "mem_eff"))]
+
+
+# -- ES search, PoUWTrainer and GAN inversion on the card ---------------------
+# |card - CPU| of ES candidates: their noise differs only where the two
+# devices' log1p round differently (relative 2e-6 at most, as against JAX's
+# normal); of ES losses, relative: the card scores through the flash kernel
+ES_NOISE_TOL, ES_LOSS_TOL = 2e-6, 1e-5
+
+
+def _es_case():
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train import steps
+    cfg = get_config("pnpcoin-demo")
+    batch = SyntheticTokenPipeline(
+        cfg, InputShape("es32x2", 32, 2, "train")).batch(0)
+    params = steps.make_train_state(cfg, random.key(0), "cpu").params
+    return cfg, batch, params
+
+
+def test_es_candidates_and_losses_on_the_card_equal_the_cpus(card):
+    from repro_torch import random
+    from repro_torch.core import es
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import steps
+    cfg, batch, params = _es_case()
+    on_card = tree_map(lambda t: t.to(card), params)
+    key, sigma = random.key(7), 0.02
+    for i in range(5):
+        got = tree_leaves(es.candidate_params(on_card, key, i, sigma))
+        want = tree_leaves(es.candidate_params(params, key, i, sigma))
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.dtype == w.dtype
+            tol = sigma * ES_NOISE_TOL + float(
+                torch.finfo(torch.float32).eps * w.abs().max())
+            assert float((g.cpu() - w).abs().max()) <= tol
+    eval_step = steps.make_eval_step(cfg)
+    before = flash_attention.launches
+    got, gbest = es.es_block(eval_step, on_card, batch, key, pop_size=6,
+                             sigma=sigma)
+    # one serving launch a layer and candidate
+    assert flash_attention.launches - before == 6 * cfg.n_layers
+    want, wbest = es.es_block(eval_step, params, batch, key, pop_size=6,
+                              sigma=sigma)
+    assert torch.allclose(got.cpu(), want, rtol=ES_LOSS_TOL, atol=0)
+    assert int(gbest) == int(wbest)
+
+
+def test_two_fresh_optimal_trainers_on_the_card_agree_bit_for_bit(card):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.pow_train import PoUWTrainer
+    trainers = [PoUWTrainer(get_config("pnpcoin-demo"),
+                            InputShape("es32x2", 32, 2, "train"),
+                            mode="optimal", pop_size=4, sigma=0.02,
+                            device="cuda") for _ in range(2)]
+    recs = [t.run(2) for t in trainers]
+    assert [(r.loss, r.state_digest, r.block_hash) for r in recs[0]] == \
+        [(r.loss, r.state_digest, r.block_hash) for r in recs[1]]
+    assert trainers[0].audit_block(1)
+
+
+def test_a_gan_round_on_the_card_finds_the_cpus_winner(card):
+    from repro_torch.chain.workloads import GanInversionWorkload
+    from repro_torch.core.executor import run_optimal
+    wls = {dev: GanInversionWorkload(seed=0, grid_bits=10, device=dev)
+           for dev in ("cpu", "cuda")}
+    args = torch.arange(1 << 10)
+    # the grid's draws are made on the card, as the generator's products
+    assert wls["cuda"]._draws(args.to("cuda")).is_cuda
+    assert wls["cuda"]._w1.is_cuda
+    res = {dev: wl._round_jash().fn(args.to(dev)).cpu()
+           for dev, wl in wls.items()}
+    # err * 1e4 truncated: each device draws its own latents (their log1p
+    # may round apart) and sums in its own order, so results may differ
+    # by one
+    assert int((res["cuda"] - res["cpu"]).abs().max()) <= 1
+    opt = {dev: run_optimal(wl._round_jash(), device=dev)
+           for dev, wl in wls.items()}
+    assert opt["cuda"].best_arg == opt["cpu"].best_arg

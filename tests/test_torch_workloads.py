@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.chain import workloads as jworkloads  # noqa: E402
 from repro.chain.workloads import docking as jdocking  # noqa: E402
 from repro.chain.workloads import sat as jsat  # noqa: E402
 from repro.chain import store as jstore  # noqa: E402
@@ -261,13 +262,25 @@ def test_blocks_verify_across_packages(want_cert):
 
 def test_default_suite_holds_the_ported_families_only():
     suite = default_suite(seed=3, device=CPU, sat={"n_vars": 5})
-    assert sorted(suite) == ["docking", "model_train", "sat"]
+    assert sorted(suite) == ["docking", "gan", "model_train", "sat"]
+    assert sorted(suite) == sorted(jworkloads.WORKLOAD_FAMILIES)
     assert suite["sat"].n_vars == 5 and suite["sat"].seed == 3
     assert all(wl.device == torch.device(CPU) for wl in suite.values())
     for name, cls in WORKLOAD_FAMILIES.items():
         assert cls.name == name
-    for family in ("gan", "nonesuch"):
-        with pytest.raises(ValueError, match="no ported workload family"):
-            default_suite(device=CPU, **{family: {}})
+    with pytest.raises(ValueError, match="no ported workload family"):
+        default_suite(device=CPU, nonesuch={})
     with pytest.raises(ValueError, match="registry key must match"):
         Node(device=CPU, workloads={"mislabeled": SatWorkload(device=CPU)})
+
+
+def test_default_suite_gan_mines_a_round():
+    suite = default_suite(seed=1, device=CPU, gan={"grid_bits": 6})
+    gan = suite["gan"]
+    assert (gan.grid_bits, gan.seed) == (6, 1)
+    node = Node(device=CPU, workloads=suite)
+    receipt = node.mine_block("gan")
+    assert receipt.payload.n_results == 1 << 6
+    assert receipt.payload.train_height == 0 and gan.round == 1
+    assert 0 <= receipt.payload.best_arg < 1 << 6
+    assert node.audit_chain()
