@@ -23,12 +23,17 @@ On one CUDA card it:
      head sizes that cut through its 16 x 4 register tiles and sequence
      lengths at the edges of its 16-step chunks), and the flash backward
      (dQ, dK, dV) within 1e-5 of its plain twin (scaled by each
-     tensor's largest entry, at least 1) over 80 cases (head dims 32, 64
-     and 128, GQA and MQA, causal or not, windows, rows that see no key,
+     tensor's largest entry, at least 1) over 108 cases (head dims 16, 32,
+     64 and 128, GQA and MQA, causal or not, windows, rows that see no key,
      S and T at its tiles' edges, and the training calls of pnpcoin-demo and, in float32,
      qwen3-0.6b's shape), each bit-equal to a second launch,
      with the forward's training instance (which saves the row
-     log-sum-exp) bit-equal to its serving instance;
+     log-sum-exp) bit-equal to its serving instance; and the bf16
+     tensor-core backward within 2e-2 of its twin (scaled the same way)
+     over 25 cases (hd 64 and 128, GQA ratios 1, 2 and 8, causal and
+     windowed, ragged, and the train CLI's call), bit-equal twice, with
+     the tensor-core forward's training instance bit-equal to its serving
+     instance and its log-sum-exp within 1e-4 of the plain one's;
      then times kernels, plain versions and, for attention, PyTorch's SDPA
      as a yardstick, at the main paths' shapes (the two flash kernels and
      SDPA in turns; the CUDA-core kernel also in float32, its own path, at
@@ -45,7 +50,9 @@ On one CUDA card it:
      turns with SDPA's memory-efficient backward (at pnpcoin-demo's also
      from a graph), with each call's peak device memory, and the
      forward's training instance in turns with its serving instance and
-     SDPA's efficient forward);
+     SDPA's efficient forward; the bf16 training forward and backward at
+     the train CLI's call and qwen3-0.6b's prefill shape, by events and
+     from a graph, in turns with SDPA's bf16 forward and backward);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -55,7 +62,7 @@ On one CUDA card it:
   4. runs a 2-node ``Network`` to convergence;
   5. drives the workload families and the journal through ``Node``, each
      part with its launch counts checked: SAT at the size of SATLIB's
-     uf20-91 (20 variables, 91 clauses, 2**20 assignments a block; 8
+     uf20-91 (20 variables, 91 clauses, 2**20 assignments a block; 4
      blocks, certificates and refutations, each block's table against
      numpy, each certificate the lowest satisfying assignment, each
      refutation's root against hashlib), docking at 1,024 x 1,024 pairs
@@ -77,7 +84,7 @@ On one CUDA card it:
      ``examples/torch_chain_train_model.py`` in a process of its own,
      which must print the same heights, losses and digests; then
      ``PoUWTrainer`` behind ``TrainingWorkload`` at pnpcoin-demo's width,
-     each a 2-node network of 8 blocks verified by the peer on receive:
+     each a 2-node network of 4 blocks verified by the peer on receive:
      full mode at ``examples/train_pnp.py``'s defaults (batch 16 of 128
      tokens, 8 miners), audited, recovered and reorged (``"part":
      "pouw_full"``), and optimal (ES) mode at ``examples/es_search.py``'s
@@ -88,7 +95,23 @@ On one CUDA card it:
      backward, and the peak device memory; then
      ``examples/torch_np_problems.py``'s network (3 SAT blocks, 4
      GAN-inversion rounds over 2**10 latents, error below 1.0, equal
-     digests and books; ``"gan"``);
+     digests and books; ``"gan"``). Before those parts, first in the
+     phase: ``python -m repro_torch.launch.train --arch qwen3-0.6b`` at
+     its defaults (batch 32 x 256, full mode, 8 miners, bf16) for 8
+     blocks with a checkpoint every 4, as a process of its own: its
+     ledger verifies, each checkpoint's SHA-256 is its file's, an
+     in-process audit replay gives the CLI's digests and hashes with 28
+     training-instance forward and 28 bf16 backward launches a step, the
+     loss falls, the last checkpoint loads to the replay's state digest;
+     2 ``--mode optimal`` blocks through the driver's ``main`` in this
+     process; and a 2-layer cut of qwen3-0.6b at full width on the card
+     against the CPU port's step from the same state: each leaf's
+     gradient, the norm of each leaf's change in the first block and the
+     losses (``"train_cli"``, readings and faults in a
+     ``"train_cli_cut"`` line); then
+     pnpcoin-micro (hd 16) through ``ModelTrainingWorkload(**
+     MICRO_KWARGS)``, 4 blocks on the card and the CPU port (losses
+     within 1e-5; ``"micro_train"``);
   6. serves three models at full width and depth through
      ``repro_torch.launch.serve`` (batch 8, 32 new tokens, bf16, random
      weights from a fixed seed): qwen3-0.6b (prompt 2048; flash attention),
@@ -170,11 +193,12 @@ BF16_FLOPS_S = 989e12
 # float32 outside the tensor cores (data sheet): the recurrences' rate
 F32_FLOPS_S = 67e12
 # instantiations in the library: SHA-256 3 (raw/bswap) x 3 (W = 2, 8 or
-# any), Merkle 1, flash 4 head dims x 2 dtypes, tensor-core flash 3 head
-# dims (bf16), WKV-6 2 dtypes, decay scan 2 (tiled, one thread a chain),
-# flash's training instance (float32, with the row log-sum-exp) 3 head
-# dims, the flash backward 3 kernels (D, dK and dV, dQ) x 3 head dims
-N_KERNEL_INSTANCES = 9 + 1 + 8 + 3 + 2 + 2 + 3 + 9
+# any), Merkle 1, flash 5 head dims x 2 dtypes, tensor-core flash 3 head
+# dims (bf16) and its training instance 2, WKV-6 2 dtypes, decay scan 2
+# (tiled, one thread a chain), flash's training instance (float32, with
+# the row log-sum-exp) 4 head dims, the flash backward 3 kernels (D, dK
+# and dV, dQ) x 4 head dims, the bf16 backward 3 kernels x 2 head dims
+N_KERNEL_INSTANCES = 9 + 1 + 10 + 3 + 2 + 2 + 2 + 4 + 12 + 6
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -211,12 +235,14 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_BLOCKS = 32, 4, 2, 4
 # blocks), and optimal (ES) mode at examples/es_search.py's settings
 # (batch 8 of 32 tokens, 32 candidates, sigma 0.02, a fixed batch, 8
 # miners); each a 2-node network of POUW_BLOCKS blocks
-POUW_SEQ, POUW_BATCH, POUW_MINERS, POUW_BLOCKS = 128, 16, 8, 8
+POUW_SEQ, POUW_BATCH, POUW_MINERS, POUW_BLOCKS = 128, 16, 8, 4
 ES_SEQ, ES_BATCH, ES_POP, ES_SIGMA, ES_DEMO_STEPS = 32, 8, 32, 0.02, 20
 # the attention calls of a full-mode PoUW step and of an ES candidate's
 # score: (B, S, H, Kv, hd)
 POUW_ATTN = (POUW_BATCH, POUW_SEQ, 8, 4, 32)
 ES_ATTN = (ES_BATCH, ES_SEQ, 8, 4, 32)
+# pnpcoin-micro's attention call in a MICRO_KWARGS step (hd 16)
+MICRO_ATTN = (2, 16, 2, 1, 16)
 # torch_np_problems.py's network: SAT at 12 variables, 48 clauses (3
 # blocks), GAN inversion over 2**10 latents (4 rounds)
 NP_VARS, NP_CLAUSES, NP_SAT_BLOCKS, GAN_GRID_BITS, GAN_ROUNDS = \
@@ -231,12 +257,65 @@ POUW_CPU_BLOCKS = 4
 # candidates' noise differs only where the two devices' log1p round apart
 ES_LOSS_TOL = 1e-5
 
+# the bf16 tensor-core backward's cases: (B, S, T, H, Kv, causal, window)
+# at head dims 64 and 128: GQA ratios 1, 2 and 8, causal and windowed, S
+# and T off its 64-row tiles, S != T both ways, rows that see no key (S 100
+# over T 40 with a window of 20), then the training step's call at the
+# train CLI's defaults (CLI_ATTN)
+TC_BWD_CASES = [(2, 33, 33, 4, 4, True, 0), (1, 100, 100, 8, 4, True, 0),
+                (2, 70, 150, 8, 1, False, 0), (1, 150, 70, 4, 2, True, 0),
+                (2, 90, 90, 4, 4, True, 17), (1, 200, 200, 8, 1, True, 64),
+                (1, 129, 129, 2, 1, True, 0), (1, 257, 257, 16, 8, True, 0),
+                (3, 1, 1, 2, 1, True, 0), (1, 100, 40, 2, 1, True, 20),
+                (1, 65, 129, 16, 2, False, 33), (2, 64, 64, 4, 2, True, 0)]
+# qwen3-0.6b's attention call in a training step at the train CLI's
+# defaults (batch 32 of 256 tokens), and its prefill shape, in bf16
+CLI_ATTN = (32, 256, 16, 8, 128)
+QWEN_BF16_ATTN = (SERVE_BATCH, SERVE_PROMPT, 16, 8, 128)
+# the bf16 backward against its twin (float32 math on the same bf16
+# inputs, cast to bf16): max |kernel - twin| <= TC_BWD_TOL max(1, max
+# |twin|) for each of dQ, dK, dV. The kernel rounds P and dS to bf16 for
+# its products (a relative 2^-9 each) and its results to bf16; the
+# training instance's log-sum-exp within TC_LSE_TOL of the plain one's
+# (absolute and relative: its sum runs on ex2.approx in another order)
+TC_BWD_TOL = 2e-2
+TC_LSE_TOL = 1e-4
+
+# the train CLI at its defaults (qwen3-0.6b at full width and depth,
+# batch 32 x 256, full mode, 8 miners, 1 microstep, lr 3e-4, warmup
+# max(blocks // 20, 5)) for CLI_BLOCKS blocks, a checkpoint every
+# CLI_CKPT_EVERY; then CLI_ES_BLOCKS optimal-mode blocks (pop 8, sigma
+# 0.02)
+CLI_BLOCKS, CLI_CKPT_EVERY, CLI_ES_BLOCKS = 8, 4, 2
+# qwen3-0.6b cut to CUT_LAYERS layers at full width, batch CUT_BATCH x
+# CUT_SEQ, CUT_BLOCKS full-mode blocks on the card and on the CPU port,
+# from the same initial state: |card - CPU| <= CUT_LOSS_TOL |CPU| block by
+# block; each leaf's gradient at the initial state within CUT_GRAD_TOL of
+# the CPU port's (||card - CPU|| / ||CPU|| over the leaf), and the norm of
+# each leaf's change in block 0 within CUT_UPDATE_TOL of the CPU port's
+# (|a - b| / max(a, b)). Both devices round bf16
+# weights and activations at other places; the limits lie between the
+# sound readings and the faults the part measures beside them (block 1's
+# gradient, no change at all; PERF.md)
+CUT_LAYERS, CUT_BATCH, CUT_SEQ, CUT_BLOCKS = 2, 2, 64, 2
+CUT_LOSS_TOL, CUT_GRAD_TOL, CUT_UPDATE_TOL = 1e-3, 5e-2, 1e-2
+# pnpcoin-micro (hd 16) through ModelTrainingWorkload(**MICRO_KWARGS):
+# MICRO_BLOCKS blocks on the card and on the CPU port, |card - CPU| <=
+# MICRO_LOSS_TOL |CPU| block by block
+MICRO_BLOCKS, MICRO_LOSS_TOL = 4, 1e-5
+
 MAIN_BITS = 20
 # seconds of quiet at each end of a profiled window
 PROFILER_QUIET_S = 0.02
 
 
+# the script's start: each phase's line carries the seconds since
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -272,6 +351,7 @@ def kernel_name(mangled: str) -> str:
     import re
     found = re.search(r"(sha256_rows_kernel|merkle_reduce_kernel|"
                       r"flash_fwd_kernel|flash_tc_kernel|wkv6_kernel|"
+                      r"tc_dq_kernel|tc_dkv_kernel|tc_dot_kernel|"
                       r"dq_kernel|dkv_kernel|dot_kernel|"
                       r"decay_scan_per_chain_kernel|decay_scan_kernel)",
                       mangled)
@@ -284,7 +364,9 @@ def kernel_name(mangled: str) -> str:
     targs = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+))?E", mangled)
     hd = re.search(r"ILi(\d+)E", mangled)
     if name == "flash_tc_kernel":
-        name += f"<bf16,hd={hd[1]}>"
+        name += f"<bf16,hd={hd[1]}" + (",lse>" if "Lb1E" in mangled else ">")
+    elif name.startswith("tc_"):
+        name = f"flash_tc_bwd_{name[3:]}<bf16,hd={hd[1]}>"
     elif name in ("dq_kernel", "dkv_kernel", "dot_kernel"):
         name = f"flash_bwd_{name}<f32,hd={hd[1]}>"
     elif name == "flash_fwd_kernel" and "Lb1E" in mangled:
@@ -322,16 +404,17 @@ def flash_tc_resources() -> dict:
     import ctypes
     from repro_torch.kernels import native
     lib, out = native.library(), {}
-    for hd in (64, 128, 256):
+    for hd, lse in ((64, 0), (128, 0), (256, 0), (64, 1), (128, 1)):
         regs, smem, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        rc = lib.pnp_flash_attention_tc_info(hd, ctypes.byref(regs),
+        rc = lib.pnp_flash_attention_tc_info(hd, lse, ctypes.byref(regs),
                                              ctypes.byref(smem),
                                              ctypes.byref(local))
-        check(rc == 0, f"flash_tc_kernel<hd={hd}> attributes ({rc})")
-        out[f"flash_tc_kernel<bf16,hd={hd}>"] = {
-            "registers": regs.value, "dynamic_shared_bytes": smem.value,
-            "local_bytes": local.value}
-        check(local.value == 0, f"flash_tc_kernel<hd={hd}> spills nothing")
+        name = f"flash_tc_kernel<bf16,hd={hd}" + (",lse>" if lse else ">")
+        check(rc == 0, f"{name} attributes ({rc})")
+        out[name] = {"registers": regs.value,
+                     "dynamic_shared_bytes": smem.value,
+                     "local_bytes": local.value}
+        check(local.value == 0, f"{name} spills nothing")
     return out
 
 
@@ -349,7 +432,26 @@ def flash_bwd_resources(ptxas: dict) -> dict:
                 check(res["local_bytes"] == 0,
                       f"flash backward {key} at hd {hd} spills nothing")
         out[f"hd={hd}"] = tile
-    check(len(out["ptxas"]) == 9, f"9 backward instances: {out['ptxas']}")
+    check(len(out["ptxas"]) == 12, f"12 backward instances: {out['ptxas']}")
+    return out
+
+
+def flash_tc_bwd_resources(ptxas: dict) -> dict:
+    """The bf16 backward's instances: ptxas's registers and spills, and
+    each head dim's tiles with the registers and local (spilled) bytes the
+    runtime reports; fails on a spill."""
+    from repro_torch.kernels import flash_attention_tc_bwd
+    out = {"ptxas": {name: lines for name, lines in ptxas["kernels"].items()
+                     if name.startswith("flash_tc_bwd_")}}
+    for hd in flash_attention_tc_bwd.HEAD_DIMS:
+        tile = flash_attention_tc_bwd.tile(hd)
+        for key, res in tile.items():
+            if key.endswith("_resources"):
+                check(res["local_bytes"] == 0,
+                      f"bf16 backward {key} at hd {hd} spills nothing")
+        out[f"hd={hd}"] = tile
+    check(len(out["ptxas"]) == 6, f"6 bf16 backward instances: "
+                                  f"{out['ptxas']}")
     return out
 
 
@@ -469,7 +571,7 @@ def _flash_both(q, k, v, want, label, worst, **kw) -> None:
 
 def flash_vs_plain(dev) -> dict:
     """Both flash kernels against their plain version, and each against a
-    second launch: head dims 32, 64, 128; GQA groups 1 and 2; causal and
+    second launch: head dims 16, 32, 64, 128; GQA groups 1 and 2; causal and
     not; S = T in {33, 1000, 2048} and S != T; S and T one off the CUDA-core
     kernel's block of query rows and tile of keys; float32 and bfloat16;
     the reduced float32 models' own calls (hd 32, batch 2, prompt 100); and
@@ -479,10 +581,11 @@ def flash_vs_plain(dev) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      tile)
     gen = torch.Generator(device=dev).manual_seed(20261)
-    cases = [(hd, g, causal, n, n) for hd in (32, 64, 128) for g in (1, 2)
-             for causal in (True, False) for n in (33, 1000, 2048)]
-    cases += [(hd, 2, False, 700, 1500) for hd in (32, 64, 128)]
-    for hd in (32, 64, 128):
+    cases = [(hd, g, causal, n, n) for hd in (16, 32, 64, 128)
+             for g in (1, 2) for causal in (True, False)
+             for n in (33, 1000, 2048)]
+    cases += [(hd, 2, False, 700, 1500) for hd in (16, 32, 64, 128)]
+    for hd in (16, 32, 64, 128):
         bq, bk = tile(hd)["block_rows"], tile(hd)["block_keys"]
         cases += [(hd, 2, True, bq + 1, bq + 1), (hd, 2, True, bq - 1, bq - 1),
                   (hd, 1, False, bq + 1, bk - 1),
@@ -1239,19 +1342,22 @@ def _counts() -> dict:
     fallbacks since the last ``_zero_counts``."""
     from repro_torch.core import verify
     from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention_tc
     counts = {name: mod.launches for name, mod in _launch_counters().items()}
-    # of the CUDA-core flash launches, the training instance's
+    # of each flash kernel's launches, its training instance's
     counts["flash_attention_training"] = flash_attention.lse_launches
+    counts["flash_attention_tc_training"] = flash_attention_tc.lse_launches
     counts["hashlib_fallbacks"] = verify.hashlib_fallbacks
     return counts
 
 
 def _zero_counts() -> None:
     from repro_torch.core import verify
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, flash_attention_tc
     for mod in _launch_counters().values():
         mod.launches = 0
     flash_attention.lse_launches = 0
+    flash_attention_tc.lse_launches = 0
     verify.hashlib_fallbacks = 0
 
 
@@ -1295,13 +1401,13 @@ def _unsat_table(cnf, n: int):
 # the per-chunk SHA-256 launches of a full-mode block over 2**20 args
 CHUNKS = (1 << MAIN_BITS) // (1 << 16)
 # SATLIB's uniform random 3-SAT set uf20-91: 20 variables, 91 clauses
-SAT_VARS, SAT_CLAUSES, SAT_BLOCKS = 20, 91, 8
+SAT_VARS, SAT_CLAUSES, SAT_BLOCKS = 20, 91, 4
 # the paper's §4 docking walkthrough at 2**20 pairs
 DOCK_R, DOCK_P, DOCK_STEPS = 1024, 1024, 64
 
 
 def sat_path(dev) -> dict:
-    """SAT at uf20-91's size through ``Node``: 8 blocks of 2**20
+    """SAT at uf20-91's size through ``Node``: ``SAT_BLOCKS`` blocks of 2**20
     assignments each, every block's table against numpy, each certificate
     the lowest satisfying assignment, each refutation's root against
     hashlib, then the node's batched audit. Launches: 16 SHA-256 and one
@@ -1604,18 +1710,21 @@ def quickstart_path() -> dict:
 
 ENTRY_OF = {"flash_attention": "flash_attention",
             "flash_attention_tc": "flash_attention",
-            "flash_attention_bwd": "flash_attention", "wkv6": "wkv6",
+            "flash_attention_bwd": "flash_attention",
+            "flash_attention_tc_bwd": "flash_attention", "wkv6": "wkv6",
             "decay_scan": "decay_scan"}
 
 
 def _launch_counters():
     from repro_torch.kernels import (decay_scan, flash_attention,
                                      flash_attention_bwd, flash_attention_tc,
-                                     merkle, sha256, wkv6)
+                                     flash_attention_tc_bwd, merkle, sha256,
+                                     wkv6)
     return {"sha256": sha256, "merkle": merkle,
             "flash_attention": flash_attention,
             "flash_attention_tc": flash_attention_tc,
-            "flash_attention_bwd": flash_attention_bwd, "wkv6": wkv6,
+            "flash_attention_bwd": flash_attention_bwd,
+            "flash_attention_tc_bwd": flash_attention_tc_bwd, "wkv6": wkv6,
             "decay_scan": decay_scan}
 
 
@@ -1842,9 +1951,10 @@ def flash_bwd_vs_plain(dev) -> dict:
     flash_attention_bwd_ref``) on the same q, k, v, output, row
     log-sum-exp and output gradient, within ``BWD_TOL`` times each
     tensor's largest entry (at least 1), and bit-equal to a second
-    launch: ``BWD_CASES`` at head dims 32, 64 and 128, then pnpcoin-demo's
-    training calls (the model_train chain's, a full-mode PoUW step's and
-    an ES candidate's) and qwen3-0.6b's prefill shape in float32 (causal),
+    launch: ``BWD_CASES`` at head dims 16, 32, 64 and 128, then
+    pnpcoin-demo's training calls (the model_train chain's, a full-mode
+    PoUW step's and an ES candidate's) and qwen3-0.6b's prefill shape in
+    float32 (causal),
     where the kernel and the twin are also held against the twin's math
     in float64 (output and log-sum-exp recomputed in float64). The
     forward's training instance gives the output and log-sum-exp, its
@@ -1857,7 +1967,8 @@ def flash_bwd_vs_plain(dev) -> dict:
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(20268)
-    cases = [(B, S, T, H, Kv, hd, causal, window) for hd in (32, 64, 128)
+    cases = [(B, S, T, H, Kv, hd, causal, window)
+             for hd in (16, 32, 64, 128)
              for B, S, T, H, Kv, causal, window in BWD_CASES]
     path_calls = (DEMO_ATTN, POUW_ATTN, ES_ATTN, QWEN_F32_ATTN)
     for B, S, H, Kv, hd in path_calls:
@@ -1981,7 +2092,8 @@ def peak_extra_bytes(fn) -> int:
 def flash_bwd_times(dev) -> dict:
     """The flash backward at pnpcoin-demo's training calls (the
     model_train workload's, and a full-mode PoUW step's at batch 16 of 128
-    tokens), qwen3-0.6b's prefill shape in float32 and the same heads at
+    tokens), pnpcoin-micro's (hd 16, also from a graph), qwen3-0.6b's
+    prefill shape in float32 and the same heads at
     S = T = 4096 (past the
     cap on dS, so in chunks of key tiles), causal: by events (10 calls in
     a row) and replayed from a CUDA graph, in turns with SDPA's
@@ -2006,6 +2118,7 @@ def flash_bwd_times(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(20269)
     out = {}
     for name, (B, S, H, Kv, hd) in (("pnpcoin-demo", DEMO_ATTN),
+                                    ("pnpcoin-micro", MICRO_ATTN),
                                     ("pnpcoin-demo PoUW", POUW_ATTN),
                                     ("qwen3-0.6b", QWEN_F32_ATTN),
                                     ("qwen3-0.6b S=T=4096", CHUNKED_ATTN)):
@@ -2060,7 +2173,7 @@ def flash_bwd_times(dev) -> dict:
         ms = in_turns({"kernel": kernel, "sdpa_efficient": sdpa})
         dev_ms = graph_ms(kernel)
         sdpa_dev_ms = sdpa_backward_graph_ms(qt, kt, vt, dot) \
-            if name == "pnpcoin-demo" else None
+            if name.startswith(("pnpcoin-demo", "pnpcoin-micro")) else None
         plain_ms = None if chunked else cuda_ms(
             lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 causal=True),
@@ -2114,11 +2227,14 @@ def flash_bwd_times(dev) -> dict:
     return out
 
 
-def sdpa_backward_graph_ms(qt, kt, vt, dot, reps=10) -> float:
-    """SDPA's efficient backward on leaf tensors qt, kt, vt (B, H, S, hd)
-    with output gradient dot, causal, replayed from a CUDA graph of
-    ``reps`` backward calls (its forward runs once, outside the graph, on
-    the capturing stream, so autograd launches the backward there)."""
+def sdpa_backward_graph_ms(qt, kt, vt, dot, reps=10,
+                           backend="efficient") -> float:
+    """SDPA's efficient backward (``backend=None``: its default backend)
+    on leaf tensors qt, kt, vt (B, H, S, hd) with output gradient dot,
+    causal, replayed from a CUDA graph of ``reps`` backward calls (its
+    forward runs once, outside the graph, on the capturing stream, so
+    autograd launches the backward there)."""
+    import contextlib
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     side = torch.cuda.Stream()
@@ -2129,7 +2245,8 @@ def sdpa_backward_graph_ms(qt, kt, vt, dot, reps=10) -> float:
         leaves = [x.detach().clone().requires_grad_(True)
                   for x in (qt, kt, vt)]
         grad = dot.clone()
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        with (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if backend
+              else contextlib.nullcontext()):
             out = torch.nn.functional.scaled_dot_product_attention(
                 *leaves, is_causal=True)
         for _ in range(3):
@@ -2143,31 +2260,212 @@ def sdpa_backward_graph_ms(qt, kt, vt, dot, reps=10) -> float:
     return cuda_ms(graph.replay, reps=1) / reps
 
 
+def flash_tc_bwd_vs_plain(dev) -> dict:
+    """The bf16 tensor-core backward against its plain twin (``ref.
+    flash_attention_bwd_ref`` on the same bf16 q, k, v, output, row
+    log-sum-exp and output gradient, in float32, cast to bf16) within
+    ``TC_BWD_TOL`` times each tensor's largest entry (at least 1), and
+    bit-equal to a second launch: ``TC_BWD_CASES`` at head dims 64 and 128
+    and the training step's call ``CLI_ATTN``. The forward's training
+    instance gives the output and log-sum-exp: its output bit-equal to the
+    serving instance's, its log-sum-exp within ``TC_LSE_TOL`` of the plain
+    one's on every row (-1e30 on a row that sees no key)."""
+    import torch
+    from repro_torch.kernels import flash_attention_tc as ft
+    from repro_torch.kernels import flash_attention_tc_bwd as ftb
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(20270)
+    cases = [(B, S, T, H, Kv, hd, causal, window) for hd in ftb.HEAD_DIMS
+             for B, S, T, H, Kv, causal, window in TC_BWD_CASES]
+    B, S, H, Kv, hd = CLI_ATTN
+    cases.append((B, S, S, H, Kv, hd, True, 0))
+    worst = {"abs": 0.0, "rel": 0.0, "lse": 0.0}
+    for B, S, T, H, Kv, hd, causal, window in cases:
+        label = f"B={B} S={S} T={T} H={H} Kv={Kv} hd={hd} causal={causal} " \
+                f"window={window}"
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for shape in
+                   ((B, S, H, hd), (B, T, Kv, hd), (B, T, Kv, hd)))
+        o, lse = ft.flash_attention_tc_lse_cuda(q, k, v, causal=causal,
+                                                window=window)
+        check(torch.equal(o, ft.flash_attention_tc_cuda(
+            q, k, v, causal=causal, window=window)),
+            f"tensor-core training instance's output = serving "
+            f"instance's, {label}")
+        want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                               window=window)
+        lse_err = float((lse - want_lse).abs().max())
+        worst["lse"] = max(worst["lse"], lse_err)
+        check(torch.allclose(lse, want_lse, rtol=TC_LSE_TOL, atol=TC_LSE_TOL),
+              f"tensor-core log-sum-exp vs plain ({lse_err}), {label}")
+        do = torch.randn(o.shape, generator=gen, device=dev).to(torch.bfloat16)
+        got = ftb.flash_attention_tc_bwd_cuda(q, k, v, o, lse, do,
+                                              causal=causal, window=window)
+        again = ftb.flash_attention_tc_bwd_cuda(q, k, v, o, lse, do,
+                                                causal=causal, window=window)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"bf16 backward: two launches equal, {label}")
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+        for g, w in zip(got, want):
+            check(g.dtype == torch.bfloat16, f"bf16 gradients, {label}")
+            err = float((g.float() - w.to(torch.bfloat16).float()).abs().max())
+            scale = max(1.0, float(w.abs().max()))
+            worst["abs"] = max(worst["abs"], err)
+            worst["rel"] = max(worst["rel"], err / scale)
+            check(err <= TC_BWD_TOL * scale,
+                  f"bf16 backward vs plain ({err}, scale {scale}), {label}")
+        del q, k, v, o, lse, do, got, again, want, want_lse
+    torch.cuda.empty_cache()
+    return {"cases": len(cases),
+            "tolerance": f"max |kernel - twin as bf16| <= {TC_BWD_TOL} "
+                         "max(1, max |twin|), each of dQ, dK, dV; "
+                         f"log-sum-exp within {TC_LSE_TOL}",
+            "max_abs_err": worst["abs"], "max_err_over_scale": worst["rel"],
+            "lse_max_abs_err": worst["lse"]}
+
+
+def flash_tc_bwd_times(dev) -> dict:
+    """The bf16 training forward (the tensor-core kernel's instance that
+    saves the log-sum-exp) and the bf16 backward at the training step's
+    call (``CLI_ATTN``) and at qwen3-0.6b's prefill shape, causal: by
+    events (10 calls in a row) in turns with SDPA on the same bf16 inputs
+    (its default backend, K and V repeated to H heads, leaf tensors, so
+    only the attention runs), and replayed from a CUDA graph (SDPA's
+    backward too); the plain twin; the bounds (backward: 5 products of 2
+    hd flops per (query, key) pair of the causal half at 989 TFLOP/s,
+    against q, k, v, o, dO and the log-sum-exp read and dQ, dK, dV written
+    once at 3.35 TB/s; forward: 2 products, q, k, v read, o and the
+    log-sum-exp written); each call's peak device memory over its
+    inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_tc as ft
+    from repro_torch.kernels import flash_attention_tc_bwd as ftb
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(20271)
+    out = {}
+    for name, (B, S, H, Kv, hd) in (("qwen3-0.6b train_cli", CLI_ATTN),
+                                    ("qwen3-0.6b prefill", QWEN_BF16_ATTN)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for shape in
+                   ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+        o, lse = ft.flash_attention_tc_lse_cuda(q, k, v, causal=True)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(torch.bfloat16)
+        pairs = S * (S + 1) // 2
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for x in (k, v))
+        sd_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+
+        def kernel():
+            return ftb.flash_attention_tc_bwd_cuda(q, k, v, o, lse, do,
+                                                   causal=True)
+
+        def sdpa():
+            return torch.autograd.grad(sd_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        def sdpa_forward():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+        peak = {"kernel": peak_extra_bytes(kernel),
+                "sdpa": peak_extra_bytes(sdpa)}
+        dq_sdpa = sdpa()[0].transpose(1, 2).float()
+        dq = kernel()[0].float()
+        sdpa_err = float((dq_sdpa - dq).abs().max())
+        check(sdpa_err <= TC_BWD_TOL * max(1.0, float(dq_sdpa.abs().max())),
+              f"SDPA's bf16 backward agrees with the kernel's dQ at {name} "
+              f"({sdpa_err})")
+        del dq_sdpa, dq
+        ms = in_turns({"kernel": kernel, "sdpa": sdpa})
+        fwd = in_turns({
+            "training_instance": lambda: ft.flash_attention_tc_lse_cuda(
+                q, k, v, causal=True),
+            "serving_instance": lambda: ft.flash_attention_tc_cuda(
+                q, k, v, causal=True),
+            "sdpa": sdpa_forward})
+        dev_ms = graph_ms(kernel)
+        fwd_dev_ms = graph_ms(lambda: ft.flash_attention_tc_lse_cuda(
+            q, k, v, causal=True))
+        sdpa_dev_ms = sdpa_backward_graph_ms(qt, kt, vt, dot, backend=None)
+        plain_ms = cuda_ms(
+            lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                causal=True),
+            reps=1, rounds=1)
+        flops = 5 * 2 * hd * pairs * B * H
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        t_ops, t_bytes = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
+        f_ops = 2 * 2 * hd * pairs * B * H / BF16_FLOPS_S
+        f_bytes = (2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()) \
+            / HBM_BYTES_S
+        bound = max(t_ops, t_bytes) * 1e3
+        out[name] = {
+            "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal",
+            "ms": ms["kernel"], "device_ms_from_graph": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": ms["sdpa"], "library_ms_from_graph": sdpa_dev_ms,
+            "library": "scaled_dot_product_attention backward, default "
+                       "backend, K and V repeated",
+            "sdpa_dq_max_abs_err": sdpa_err,
+            "bound_arithmetic": f"max({flops:.4g} flops / 989e12, "
+                                f"{nbytes:.4g} B / 3.35e12) = "
+                                f"max({t_ops * 1e3:.4g}, "
+                                f"{t_bytes * 1e3:.4g}) ms",
+            "share_of_bound": bound / ms["kernel"],
+            "peak_bytes_over_inputs": peak,
+            "chunks": -(-B // ftb.rows_a_chunk(S, S, H)),
+            "forward_training_instance_ms": fwd["training_instance"],
+            "forward_training_instance_ms_from_graph": fwd_dev_ms,
+            "forward_serving_instance_ms": fwd["serving_instance"],
+            "forward_library_ms": fwd["sdpa"],
+            "forward_bound_ms": max(f_ops, f_bytes) * 1e3,
+            "forward_bound_by": "operations" if f_ops > f_bytes
+                                else "bytes"}
+        del q, k, v, o, lse, do, qt, kt, vt, sd_out, dot
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_step_split(dev) -> dict:
     """One pnpcoin-demo training step (the workload's: batch 4 of 32
     tokens, float32) split by CUDA events into the forward (loss), the
     backward (autograd, through the flash backward) and the optimiser
     (the schedule and AdamW), with the peak device memory of a step; the
     median of 5 steps after one warm-up."""
-    import torch
     from repro_torch import random
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data.pipeline import SyntheticTokenPipeline
-    from repro_torch.models.model import build_model
-    from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
-    from repro_torch.optim.schedule import cosine_schedule
     from repro_torch.train import steps
     cfg = get_config("pnpcoin-demo")
-    model = build_model(cfg)
     state = steps.make_train_state(cfg, random.key(0), dev)
     batch = SyntheticTokenPipeline(cfg, InputShape(
         f"chain{TRAIN_SEQ}x{TRAIN_BATCH}", TRAIN_SEQ, TRAIN_BATCH,
         "train")).microbatch(0, 0)
+    return step_split(cfg, state, batch, steps.TrainHparams(
+        warmup_steps=4, total_steps=512))
+
+
+def step_split(cfg, state, batch, hp, reps: int = 5) -> dict:
+    """Training steps of ``cfg`` from ``state`` on ``batch`` split by CUDA
+    events into the forward (loss), the backward (autograd, through the
+    flash backward) and the optimiser (the schedule and AdamW, ``hp``),
+    with the peak device memory of a step; the median of ``reps`` steps
+    after one warm-up."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.train import steps
+    model = build_model(cfg)
     split = {"forward": [], "backward": [], "optimiser": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for rep in range(6):
+    for rep in range(reps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         params = tree_map(lambda t: t.detach().requires_grad_(True),
                           state.params)
@@ -2178,10 +2476,13 @@ def train_step_split(dev) -> dict:
             loss, tree_leaves(params))))
         ev[2].record()
         with torch.no_grad():
-            lr = cosine_schedule(state.opt.step + 1, peak_lr=3e-4,
-                                 warmup_steps=4, total_steps=512)
+            lr = cosine_schedule(state.opt.step + 1, peak_lr=hp.peak_lr,
+                                 warmup_steps=hp.warmup_steps,
+                                 total_steps=hp.total_steps)
             new, opt = adamw_update(tree_map(torch.Tensor.detach, params),
-                                    grads, state.opt, lr)
+                                    grads, state.opt, lr,
+                                    weight_decay=hp.weight_decay,
+                                    grad_clip=hp.grad_clip)
         ev[3].record()
         ev[3].synchronize()
         state = steps.TrainState(new, opt)
@@ -2773,6 +3074,398 @@ def gan_path(dev) -> dict:
                                    "flash_attention_bwd")}}
 
 
+def _train_cli(args, out_dir) -> dict:
+    """``python -m repro_torch.launch.train`` with ``args`` as a process of
+    its own on the card, its files under ``out_dir``: exit code, seconds,
+    the printed blocks and the last line."""
+    import os
+    import re
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args, "--out",
+         str(out_dir)], capture_output=True, text=True, timeout=900,
+        cwd=ROOT, env=env)
+    seconds = time.perf_counter() - t
+    check(proc.returncode == 0, f"train CLI {args}: exit {proc.returncode}, "
+          f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    blocks = {int(h): float(loss) for h, loss in re.findall(
+        r"block +(\d+) mode=\w+ loss=([-0-9.naif]+)", proc.stdout)}
+    check(lines and lines[-1].startswith("done:")
+          and lines[-1].endswith("chain verified."),
+          f"train CLI {args}: {lines[-3:]}")
+    return {"args": args, "seconds": seconds, "printed": lines,
+            "losses_printed": blocks}
+
+
+def train_cli_path(dev) -> dict:
+    """``python -m repro_torch.launch.train --arch qwen3-0.6b`` at the
+    reference driver's defaults (batch 32 x 256, full mode, 8 miners) on
+    the card, ``CLI_BLOCKS`` blocks with a checkpoint every
+    ``CLI_CKPT_EVERY``, as its own process: the chain verifies
+    (``ledger.json``), each checkpoint's SHA-256 equals its file's. Then in
+    this process a fresh trainer of the same run audits the chain by
+    replay, as a verifier does (the trainer build timed, its threefry init
+    drawn again and timed alone): every block's state digest and hash,
+    the last block's included, equal the CLI's (across processes, so the
+    card's products repeat bit for bit), the loss falls from the first
+    block, 28 training-instance forward and 28 backward launches a step
+    on the tensor cores and no other kernel, and the last checkpoint
+    loads to the replay's ``state_digest``; a step split by CUDA events;
+    peak device memory. Then
+    ``CLI_ES_BLOCKS`` optimal-mode blocks through the driver's ``main`` in
+    this process (a process of its own would pay its start and imports
+    again; an ES candidate's time measured here), and qwen3-0.6b cut to ``CUT_LAYERS``
+    layers at full width: a card trainer's blocks against the CPU port's
+    training step from the same initial state (``cut_vs_cpu``)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import ledger_from_json
+    from repro_torch.core import es as es_mod
+    from repro_torch.core.pow_train import PoUWTrainer
+    from repro_torch.launch import train as ttrain
+    from repro_torch.train import checkpoint
+    from repro_torch.train.steps import (TrainHparams, make_train_state,
+                                         params_digest)
+    cfg = get_config("qwen3-0.6b")
+    B, S = 32, 256
+    out_dir = ROOT / "build" / "train_cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        cli = _train_cli(["--arch", "qwen3-0.6b", "--blocks",
+                          str(CLI_BLOCKS), "--ckpt-every",
+                          str(CLI_CKPT_EVERY)], out_dir / "full")
+        ledger = ledger_from_json((out_dir / "full" /
+                                   "ledger.json").read_text())
+        check(ledger.verify_chain() and ledger.height == CLI_BLOCKS,
+              "train CLI: its ledger.json verifies")
+        ckpts = {}
+        for b in range(CLI_CKPT_EVERY, CLI_BLOCKS + 1, CLI_CKPT_EVERY):
+            path = out_dir / "full" / f"ckpt_{b}.npz"
+            meta = json.loads(Path(str(path) + ".meta.json").read_text())
+            t = time.perf_counter()
+            digest = checkpoint.file_digest(str(path))
+            ckpts[b] = {"bytes": path.stat().st_size, "sha256": digest,
+                        "hash_s": time.perf_counter() - t}
+            check(meta["sha256"] == digest and meta["block"] == b
+                  and meta["ledger_tip"] == ledger.blocks[b - 1].block_hash
+                  and any(f"sha256={digest[:16]}" in ln
+                          for ln in cli["printed"]),
+                  f"train CLI: checkpoint {b}'s SHA-256 is its file's")
+
+        # the same run in this process: the replay
+        hp = TrainHparams(peak_lr=3e-4, warmup_steps=max(CLI_BLOCKS // 20, 5),
+                          total_steps=CLI_BLOCKS)
+
+        def trainer(mode="full", config=cfg, batch=B, seq=S, device=dev,
+                    blocks=CLI_BLOCKS):
+            return PoUWTrainer(config, InputShape("cli", seq, batch, "train"),
+                               hp=dataclasses.replace(
+                                   hp, warmup_steps=max(blocks // 20, 5),
+                                   total_steps=blocks),
+                               mode=mode, n_miners=8, pop_size=8, sigma=0.02,
+                               device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        tr = trainer()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        init_digest = params_digest(tr.state)
+        _zero_counts()
+        block_s = []
+        for _ in range(CLI_BLOCKS):
+            t = time.perf_counter()
+            tr.run_block()
+            torch.cuda.synchronize()
+            block_s.append(time.perf_counter() - t)
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        layers = cfg.n_layers * CLI_BLOCKS
+        check(counts["flash_attention_tc"] == counts[
+                  "flash_attention_tc_training"] == layers
+              and counts["flash_attention_tc_bwd"] == layers
+              and all(counts[k] == 0 for k in (
+                  "flash_attention", "flash_attention_bwd", "sha256",
+                  "merkle", "wkv6", "decay_scan")),
+              f"train_cli: {cfg.n_layers} training-instance forward and "
+              f"backward launches a step and no other kernel, got {counts}")
+        check([r.state_digest for r in tr.history]
+              == [blk.state_digest for blk in ledger.blocks]
+              and [r.block_hash for r in tr.history]
+              == [blk.block_hash for blk in ledger.blocks],
+              f"train_cli: the audit replay in this process gives the CLI's "
+              f"digests and block hashes, block {CLI_BLOCKS - 1}'s included")
+        losses = [r.loss for r in tr.history]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+              and abs(cli["losses_printed"][0] - losses[0]) < 1e-4,
+              f"train_cli: the loss falls from the first block: {losses}")
+        t = time.perf_counter()
+        loaded, digest = checkpoint.load_checkpoint(
+            str(out_dir / "full" / f"ckpt_{CLI_BLOCKS}.npz"), tr.state)
+        load_s = time.perf_counter() - t
+        check(digest == ckpts[CLI_BLOCKS]["sha256"]
+              and checkpoint.state_digest(loaded)
+              == checkpoint.state_digest(tr.state)
+              and params_digest(loaded) == ledger.blocks[-1].state_digest,
+              "train_cli: the last checkpoint loads to the trainer's state")
+        del loaded
+        split = step_split(cfg, tr.state, tr.pipeline.batch(0), hp, reps=3)
+        # the build's first half: the threefry init of 596M weights on the
+        # card (the rest is the step's review)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        init = make_train_state(cfg, random.key(0), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        check(params_digest(init) == init_digest, "train_cli: the init drawn "
+              "again on the card is the trainer's bit for bit")
+        del init
+        # an ES candidate at full width: its noise and its scored loss
+        batch = tr.pipeline.batch(0)
+        key = random.key(7)
+        _zero_counts()
+        t = time.perf_counter()
+        cand = es_mod.candidate_params(tr.state.params, key, 1, 0.02)
+        loss = tr._eval_step(cand, batch)
+        torch.cuda.synchronize()
+        candidate_s = time.perf_counter() - t
+        es_counts = _counts()
+        check(bool(torch.isfinite(loss)) and es_counts["flash_attention_tc"]
+              == cfg.n_layers and es_counts["flash_attention_tc_training"]
+              == 0, f"train_cli: an ES candidate scores through the serving "
+                    f"instance, {es_counts}")
+        del tr, cand, batch
+        torch.cuda.empty_cache()
+
+        # the driver in this process: CLI_ES_BLOCKS optimal-mode blocks
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ttrain.main(["--arch", "qwen3-0.6b", "--blocks",
+                         str(CLI_ES_BLOCKS), "--mode", "optimal",
+                         "--ckpt-every", "0", "--out",
+                         str(out_dir / "optimal")])
+        es = {"seconds": time.perf_counter() - t,
+              "printed": buf.getvalue().splitlines()}
+        es_ledger = ledger_from_json((out_dir / "optimal" /
+                                      "ledger.json").read_text())
+        check(es_ledger.verify_chain() and es_ledger.height == CLI_ES_BLOCKS
+              and all(b.mode == "optimal" for b in es_ledger.blocks)
+              and es["printed"][-1].endswith("chain verified."),
+              "train CLI --mode optimal: its ledger verifies")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    cut = cut_vs_cpu(dataclasses.replace(cfg, n_layers=CUT_LAYERS),
+                     lambda config: trainer(config=config, batch=CUT_BATCH,
+                                            seq=CUT_SEQ, blocks=CUT_BLOCKS))
+    cut["seconds"] = time.perf_counter() - t
+    return {"phase": "workloads", "part": "train_cli",
+            "config": f"qwen3-0.6b ({cfg.n_layers} layers, d_model "
+                      f"{cfg.d_model}, {cfg.n_heads} heads over "
+                      f"{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, vocab "
+                      f"{cfg.vocab_size}, {cfg.dtype} weights, "
+                      f"{cfg.opt_dtype} AdamW moments), full mode, batch {B}"
+                      f" x {S} tokens, 8 miners, {hp}",
+            "attention_call": dict(zip("B S H Kv hd".split(), CLI_ATTN)),
+            "cli_seconds": cli["seconds"], "cli_printed": cli["printed"],
+            "checkpoints": ckpts, "checkpoint_load_s": load_s,
+            "trainer_build_s": build_s, "init_on_card_s": init_s,
+            "block_s": block_s,
+            "losses": losses, "step_split": split,
+            "peak_device_mb": peak / 1e6, "counts": counts,
+            "es_candidate_s": candidate_s, "es_main_seconds": es["seconds"],
+            "es_printed": es["printed"], "cut": cut,
+            "launches": {
+                "flash_attention_tc": counts["flash_attention_tc"]
+                + es_counts["flash_attention_tc"],
+                "flash_attention_tc_bwd": counts["flash_attention_tc_bwd"],
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "sha256": 0, "merkle": 0}}
+
+
+def _leaf_errs(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| of each leaf (float32 on the host), by
+    path; a leaf whose ``want`` is all zero gives ||got||."""
+    import torch
+    out = {}
+    for path, w in want.items():
+        w = w.float().cpu()
+        diff = float(torch.linalg.vector_norm(got[path].float().cpu() - w))
+        norm = float(torch.linalg.vector_norm(w))
+        out[path] = diff / norm if norm else diff
+    return out
+
+
+def _grads_by_path(cfg, params, batch) -> dict:
+    """The gradient of ``cfg``'s training loss at ``params`` on ``batch``,
+    leaf by leaf as the train step takes it, on the host."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.steps import _flatten_with_path
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, _ = build_model(cfg).loss(live, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    return {path: g.cpu() for (path, _), g in
+            zip(_flatten_with_path(live), grads)}
+
+
+def cut_vs_cpu(cut, make_trainer) -> dict:
+    """qwen3-0.6b cut to a few layers at full width: a card trainer from
+    ``make_trainer(cut)`` against the CPU port's training step from the
+    same initial state (copied from the card: a host draw of its 165M
+    weights takes minutes) on the same batches. Held leaf by leaf, not
+    only by the loss, which one step at this init moves by ~1e-3 of
+    itself: each leaf's gradient at the initial state on block 0's batch
+    (``CUT_GRAD_TOL``), the norm of each leaf's change in block 0
+    (``CUT_UPDATE_TOL``; a bf16 weight whose update sits at a rounding
+    edge moves by an ulp on one device and not on the other, so the change
+    is held by its norm) and each block's loss (``CUT_LOSS_TOL``). Beside the readings, what
+    the same measure gives for two faults: the gradient of block 1's batch
+    in place of block 0's, and a block that changes nothing."""
+    import torch
+    from repro_torch.optim.adamw import AdamWState, tree_map
+    from repro_torch.train.steps import (TrainState, _flatten_with_path,
+                                         make_train_step)
+
+    def host(tree):
+        return tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+    t = time.perf_counter()
+    tr = make_trainer(cut)
+    build_s = time.perf_counter() - t
+    batches = [tr.pipeline.batch(b) for b in range(CUT_BLOCKS)]
+    step = make_train_step(cut, tr.hp)
+    start = TrainState(params=host(tr.state.params),
+                       opt=AdamWState(*(host(x) for x in tr.state.opt)))
+    p0 = dict(_flatten_with_path(start.params))
+    t = time.perf_counter()
+    card_grads = _grads_by_path(cut, tr.state.params, batches[0])
+    card = [tr.run_block().loss]
+    p1 = dict(_flatten_with_path(host(tr.state.params)))
+    card += [r.loss for r in tr.run(CUT_BLOCKS - 1)]
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t
+    del tr
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    host_grads = _grads_by_path(cut, start.params, batches[0])
+    cpu, state = [], start
+    for b in range(CUT_BLOCKS):
+        state, metrics = step(state, batches[b])
+        cpu.append(float(metrics["loss"]))
+        if b == 0:
+            q1 = dict(_flatten_with_path(state.params))
+    cpu_s = time.perf_counter() - t
+    wrong = _grads_by_path(cut, start.params, batches[1])
+
+    def change_norms(p):
+        return {k: float(torch.linalg.vector_norm(p[k].float()
+                                                  - p0[k].float()))
+                for k in p0}
+
+    def norm_errs(got, want):
+        # |a - b| / max(a, b): a leaf that moves on one device only gives 1
+        return {k: abs(got[k] - want[k]) / max(got[k], want[k])
+                if max(got[k], want[k]) else 0.0 for k in want}
+
+    grad_errs = _leaf_errs(card_grads, host_grads)
+    card_change, cpu_change = change_norms(p1), change_norms(q1)
+    update_errs = norm_errs(card_change, cpu_change)
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(card, cpu))
+    # each fault measured as the check measures the card: its worst leaf
+    controls = {
+        "grad_of_block_1s_batch": max(_leaf_errs(wrong, host_grads).values()),
+        "update_left_out": max(norm_errs(dict.fromkeys(p0, 0.0),
+                                         cpu_change).values())}
+    rec = {"layers": cut.n_layers, "batch": CUT_BATCH, "seq": CUT_SEQ,
+           "card_losses": card, "cpu_losses": cpu, "loss_rel_err": loss_err,
+           "grad_rel_err_by_leaf": grad_errs,
+           "change_norm_by_leaf": {"card": card_change, "cpu": cpu_change},
+           "change_norm_rel_err_by_leaf": update_errs,
+           "worst_leaf": {"grad": max(grad_errs.values()),
+                          "change_norm": max(update_errs.values())},
+           "faults_worst_leaf": controls,
+           "build_s": build_s, "cuda_s": cuda_s, "cpu_s": cpu_s}
+    emit({"phase": "workloads", "part": "train_cli_cut", **rec})
+    check(rec["worst_leaf"]["grad"] <= CUT_GRAD_TOL,
+          f"train_cli: the cut's gradients on the card within {CUT_GRAD_TOL} "
+          f"of the CPU port's, leaf by leaf: {grad_errs}")
+    check(rec["worst_leaf"]["change_norm"] <= CUT_UPDATE_TOL,
+          f"train_cli: the cut's block-0 change on the card within "
+          f"{CUT_UPDATE_TOL} of the CPU port's, leaf by leaf: {update_errs}")
+    check(loss_err <= CUT_LOSS_TOL, f"train_cli: the cut's card losses "
+          f"{card} within {CUT_LOSS_TOL} of the CPU port's {cpu}")
+    check(controls["grad_of_block_1s_batch"] > CUT_GRAD_TOL
+          and controls["update_left_out"] > CUT_UPDATE_TOL,
+          f"train_cli: the faults measured beside the cut exceed the "
+          f"limits: {controls}")
+    return {k: rec[k] for k in ("layers", "batch", "seq", "card_losses",
+                                "cpu_losses", "loss_rel_err", "worst_leaf",
+                                "faults_worst_leaf", "build_s", "cuda_s",
+                                "cpu_s")}
+
+
+def micro_train_path(dev) -> dict:
+    """``ModelTrainingWorkload(**MICRO_KWARGS)`` (pnpcoin-micro: 1 layer,
+    hd 16, float32) mining ``MICRO_BLOCKS`` blocks on one node on the card,
+    through the CUDA-core kernels' hd 16 training instance and backward (one
+    launch of each a microstep), and on the CPU port: losses within
+    ``MICRO_LOSS_TOL``."""
+    import torch
+    from repro_torch.chain import Node
+    from repro_torch.chain.workloads import ModelTrainingWorkload
+    from repro_torch.chain.workloads.model_train import MICRO_KWARGS
+
+    def chain(device):
+        wl = ModelTrainingWorkload(device=device, **MICRO_KWARGS)
+        node = Node(node_id=0, classic_arg_bits=5, device=device,
+                    workloads={"model_train": wl})
+        t = time.perf_counter()
+        losses = [node.mine_block("model_train").payload.loss
+                  for _ in range(MICRO_BLOCKS)]
+        return losses, time.perf_counter() - t
+    _zero_counts()
+    card, card_s = chain(dev)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = MICRO_BLOCKS * MICRO_KWARGS["block_microsteps"]
+    check(counts["flash_attention"] == counts["flash_attention_training"]
+          == counts["flash_attention_bwd"] == want
+          and counts["flash_attention_tc"] == 0,
+          f"micro_train: {want} hd 16 training-instance forward and backward "
+          f"launches, got {counts}")
+    host, host_s = chain("cpu")
+    err = max(abs(x - y) / abs(y) for x, y in zip(card, host))
+    check(err <= MICRO_LOSS_TOL, f"micro_train: card losses {card} within "
+          f"{MICRO_LOSS_TOL} of the CPU port's {host}")
+    return {"phase": "workloads", "part": "micro_train",
+            "config": "pnpcoin-micro (1 layer, d_model 32, 2 heads over 1, "
+                      "hd 16, float32), MICRO_KWARGS",
+            "card_losses": card, "cpu_losses": host, "rel_err": err,
+            "card_s": card_s, "cpu_s": host_s, "counts": counts,
+            "launches": {k: counts[k] for k in (
+                "flash_attention", "flash_attention_bwd", "sha256",
+                "merkle")}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2784,7 +3477,8 @@ def main() -> int:
     from repro_torch.core.jash import Jash, JashMeta, collatz_jash
     from repro_torch.core.ledger import merkle_root
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
-                                     native, ref, sha256)
+                                     flash_attention_tc_bwd, native, ref,
+                                     sha256)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20260)
@@ -2814,7 +3508,8 @@ def main() -> int:
           "native.stream_of names the current stream")
     ptxas = ptxas_usage(log)
     for name, lines in ptxas["kernels"].items():
-        if name.startswith(("flash_fwd_kernel<f32", "flash_bwd_")):
+        if name.startswith(("flash_fwd_kernel<f32", "flash_bwd_",
+                            "flash_tc_bwd_")):
             check(all(" 0 bytes spill stores" in ln for ln in lines
                       if "spill" in ln), f"{name}: ptxas reports no spills")
     emit({"phase": "environment", "gpu": smi,
@@ -2824,6 +3519,7 @@ def main() -> int:
           "ptxas": ptxas, "sass": sass_counts(lib),
           "flash_tc_resources": flash_tc_resources(),
           "flash_bwd_resources": flash_bwd_resources(ptxas),
+          "flash_tc_bwd_resources": flash_tc_bwd_resources(ptxas),
           "counted_ops": {"compression": OPS_COMPRESSION,
                           "merkle_parent": OPS_COMPRESSION
                           + OPS_PAD_COMPRESSION}})
@@ -2872,6 +3568,8 @@ def main() -> int:
     emit({"phase": "wkv6_vs_plain", **wkv})
     bwd = flash_bwd_vs_plain(dev)
     emit({"phase": "flash_bwd_vs_plain", **bwd})
+    tc_bwd = flash_tc_bwd_vs_plain(dev)
+    emit({"phase": "flash_tc_bwd_vs_plain", **tc_bwd})
     flash_err = {**flash["max_abs_err"]}
     for key, err in flash_win["max_abs_err"].items():
         flash_err[key] = max(flash_err.get(key, 0.0), err)
@@ -2883,6 +3581,7 @@ def main() -> int:
     max_err["decay_scan"] = decay["max_abs_err"]
     max_err["wkv6"] = wkv["max_abs_err"]
     max_err["flash_attention_bwd"] = bwd["max_abs_err"]
+    max_err["flash_attention_tc_bwd"] = tc_bwd["max_abs_err"]
     emit({"phase": "kernels_vs_plain", "sha256": sha_rows,
           "merkle": {"cases": merkle_cases["cases"], "equal": True},
           "flash_attention": {"cases": flash["cases"] + flash_win["cases"],
@@ -2896,6 +3595,9 @@ def main() -> int:
           "flash_attention_bwd": {"cases": bwd["cases"],
                                   "within_tolerance": True,
                                   "tolerance": bwd["tolerance"]},
+          "flash_attention_tc_bwd": {"cases": tc_bwd["cases"],
+                                     "within_tolerance": True,
+                                     "tolerance": tc_bwd["tolerance"]},
           "max_abs_err": max_err})
 
     # timing at the main path's shapes
@@ -2935,10 +3637,13 @@ def main() -> int:
     emit({"phase": "recurrent_times", "gpu": smi, **rec_times})
     bwd_time = flash_bwd_times(dev)
     emit({"phase": "flash_bwd_times", "gpu": smi, **bwd_time})
+    tc_bwd_time = flash_tc_bwd_times(dev)
+    emit({"phase": "flash_tc_bwd_times", "gpu": smi, **tc_bwd_time})
     emit({"phase": "kernel_times", "gpu": smi, "sha256": sha_times,
           "merkle": merkle_time, "flash_attention": flash_time,
           "flash_cuda_core_float32": core_f32,
-          "flash_attention_bwd": bwd_time, **rec_times})
+          "flash_attention_bwd": bwd_time,
+          "flash_attention_tc_bwd": tc_bwd_time, **rec_times})
     torch.cuda.empty_cache()
 
     # -- 3. the main path at full size -------------------------------------
@@ -3039,7 +3744,9 @@ def main() -> int:
     # -- 5. workload families, the journal, the quickstart and training -----
     # each part zeroes the counts just before it and reads them just after
     paths = {}
-    for name, run in (("sat", lambda: sat_path(dev)),
+    for name, run in (("train_cli", lambda: train_cli_path(dev)),
+                      ("micro_train", lambda: micro_train_path(dev)),
+                      ("sat", lambda: sat_path(dev)),
                       ("docking", lambda: docking_path(dev)),
                       ("journal", lambda: journal_path(dev, job)),
                       ("quickstart", quickstart_path),
@@ -3107,11 +3814,11 @@ def main() -> int:
                                          "bound_by", "library_ms")},
                 "shape": times["shape"], "matched": True, **extra}
     train = paths["model_train"]
-    training_paths = ("model_train", "pouw_full", "pouw_es")
+    training_paths = ("model_train", "pouw_full", "pouw_es", "micro_train")
     for name in training_paths:
         check(paths[name]["launches"]["flash_attention"] > 0,
               f"the flash forward launched on the {name} path")
-    for name in ("model_train", "pouw_full"):
+    for name in ("model_train", "pouw_full", "micro_train"):
         check(paths[name]["launches"]["flash_attention_bwd"] > 0,
               f"the flash backward launched on the {name} path")
     bwd_by_path = {name: paths[name]["launches"]["flash_attention_bwd"]
@@ -3123,19 +3830,43 @@ def main() -> int:
                   bwd_time["qwen3-0.6b"],
                   pnpcoin_demo_shape=bwd_time["pnpcoin-demo"],
                   pouw_shape=bwd_time["pnpcoin-demo PoUW"],
+                  micro_shape=bwd_time["pnpcoin-micro"],
                   launches_by_path=bwd_by_path,
                   device_ms_from_graph=bwd_time["qwen3-0.6b"][
                       "device_ms_from_graph"],
                   tile={f"hd={hd}": flash_attention_bwd.tile(hd)
                         for hd in flash_attention_bwd.HEAD_DIMS},
                   path="training pnpcoin-demo (model_train, and "
-                       "PoUWTrainer's full mode; one launch a layer and "
-                       "microstep, three kernels each); times at "
-                       "qwen3-0.6b's shape in float32",
+                       "PoUWTrainer's full mode) and pnpcoin-micro at hd 16 "
+                       "(micro_train); one launch a layer and microstep, "
+                       "three kernels each; times at qwen3-0.6b's shape in "
+                       "float32",
                   replaces_note="no TPU kernel: the reference "
                                 "differentiates chunked_attention "
                                 "(jax.grad)")
     bwd_row["replaces"] = "src/repro/models/attention.py:79"
+    cli = paths["train_cli"]
+    check(cli["launches"]["flash_attention_tc"] > 0
+          and cli["launches"]["flash_attention_tc_bwd"] > 0,
+          "the tensor-core training instance and the bf16 backward launched "
+          "on the train_cli path")
+    tc_train = tc_bwd_time["qwen3-0.6b train_cli"]
+    tc_bwd_row = row(
+        "flash_attention_tc_bwd", "flash_attention_tc_bwd",
+        "flash_attention_tc_bwd.cu", "", cli["launches"][
+            "flash_attention_tc_bwd"], tc_train,
+        prefill_shape=tc_bwd_time["qwen3-0.6b prefill"],
+        device_ms_from_graph=tc_train["device_ms_from_graph"],
+        tile={f"hd={hd}": flash_attention_tc_bwd.tile(hd)
+              for hd in flash_attention_tc_bwd.HEAD_DIMS},
+        launches_by_path={"train_cli": cli["launches"][
+            "flash_attention_tc_bwd"]},
+        path="training qwen3-0.6b in bf16 through the train CLI (one "
+             "launch a layer and step, three kernels each; the audit "
+             "replay of the CLI's run); times at the CLI's call",
+        replaces_note="no TPU kernel: the reference differentiates "
+                      "chunked_attention (jax.grad)")
+    tc_bwd_row["replaces"] = "src/repro/models/attention.py:79"
     emit({"kernels": [
         row("sha256_rows", "sha256", "sha256.cu", "sha256.py:34",
             counts["sha256"], {**chunk, "library_ms": None}, path="mining",
@@ -3154,13 +3885,26 @@ def main() -> int:
                 for name, res in paths.items()}}),
         row("flash_attention_tc", "flash_attention_tc",
             "flash_attention_tc.cu", "flash_attention.py:28",
-            qwen["flash_attention_tc"] + rg["flash_attention_tc"],
+            qwen["flash_attention_tc"] + rg["flash_attention_tc"]
+            + cli["launches"]["flash_attention_tc"],
             at(flash_time, "tensor_core"),
             recurrentgemma_shape=at(flash_rg, "tensor_core"),
-            path="serving qwen3-0.6b (28) and recurrentgemma-2b (8), bf16",
+            training_instance={
+                key: {"ms": t["forward_training_instance_ms"],
+                      "ms_from_graph":
+                          t["forward_training_instance_ms_from_graph"],
+                      "serving_instance_ms": t["forward_serving_instance_ms"],
+                      "library_ms": t["forward_library_ms"],
+                      "bound_ms": t["forward_bound_ms"],
+                      "bound_by": t["forward_bound_by"]}
+                for key, t in tc_bwd_time.items()},
+            path="serving qwen3-0.6b (28) and recurrentgemma-2b (8), bf16; "
+                 "training qwen3-0.6b through the train CLI (its training "
+                 "instance, 28 a step; ES candidates the serving one)",
             launches_by_path={
                 "qwen3-0.6b": qwen["flash_attention_tc"],
-                "recurrentgemma-2b": rg["flash_attention_tc"]}),
+                "recurrentgemma-2b": rg["flash_attention_tc"],
+                "train_cli": cli["launches"]["flash_attention_tc"]}),
         row("flash_attention_fwd", "flash_attention", "flash_attention.cu",
             "flash_attention.py:28", sum(small_flash.values())
             + sum(fwd_by_path.values()),
@@ -3189,6 +3933,7 @@ def main() -> int:
                 name: paths[name]["counts_chain"]["flash_attention_training"]
                 for name in ("pouw_full", "pouw_es")}),
         bwd_row,
+        tc_bwd_row,
         row("decay_scan", "decay_scan", "decay_scan.cu", "decay_scan.py:21",
             rg["decay_scan"], rec_times["decay_scan"],
             path="serving recurrentgemma-2b"),

@@ -61,7 +61,7 @@ _PROOF_ROW = 64
 
 # The CI micro instance of the family: a real (1-layer) transformer small
 # enough for unit suites (the reference's, field for field). Its head dim
-# is 16, which only the CPU runs: the flash kernels take 32 and up.
+# is 16: on the card it trains through the flash kernels' hd 16 instances.
 MICRO_CONFIG = ModelConfig(
     name="pnpcoin-micro", family="dense", n_layers=1, d_model=32,
     n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=128,

@@ -69,3 +69,19 @@ def params_from_jax(tree: Dict[str, Any], *,
     dev = resolve(device)
     return {k: params_from_jax(v, device=dev) if isinstance(v, dict)
             else _tensor_from_array(v, dev) for k, v in tree.items()}
+
+
+def train_state_from_jax(params: Dict[str, Any], step: Any, m: Dict[str, Any],
+                         v: Dict[str, Any], *,
+                         device: DeviceLike = None) -> "TrainState":
+    """The reference's ``TrainState`` (its params, and its AdamW state's
+    step, m and v, as numpy or JAX arrays) as the port's, bits and dtypes
+    kept, on ``device``: a checkpoint of either saves to the same bytes."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.steps import TrainState
+    dev = resolve(device)
+    return TrainState(
+        params=params_from_jax(params, device=dev),
+        opt=AdamWState(step=_tensor_from_array(np.asarray(step), dev),
+                       m=params_from_jax(m, device=dev),
+                       v=params_from_jax(v, device=dev)))

@@ -66,14 +66,16 @@ def _light_state_digest(state: TrainState) -> str:
     return params_digest(state)
 
 
-def _on_cpu(tree: Any) -> Any:
-    """A tree of dicts and named tuples with its tensors copied to the
-    CPU."""
+def _fake_on_cpu(tree: Any, mode) -> Any:
+    """A tree of dicts and named tuples with each tensor as a fake CPU
+    tensor of ``mode`` (a ``FakeTensorMode``) of the same shape and dtype:
+    no storage, nothing copied."""
     if isinstance(tree, dict):
-        return {k: _on_cpu(v) for k, v in tree.items()}
+        return {k: _fake_on_cpu(v, mode) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return type(tree)(*map(_on_cpu, tree))
-    return tree.cpu()
+        return type(tree)(*(_fake_on_cpu(v, mode) for v in tree))
+    with mode:
+        return torch.empty(tree.shape, dtype=tree.dtype, device="cpu")
 
 
 @dataclasses.dataclass
@@ -85,20 +87,25 @@ class TrainStepJash(Jash):
     a log-sum-exp, as constants of the example inputs), so ``validate``
     exports the step's two halves, each on its own: the loss's forward
     (``loss_fn``) and the schedule with the AdamW update (``update_fn``).
-    Both are traced on CPU copies of the state, through the hand kernels'
-    plain versions: a kernel's wrapper hands raw device pointers to its
-    library, which the trace cannot follow."""
+    Both are traced on fake CPU tensors of the state's shapes and dtypes,
+    through the hand kernels' plain versions: a kernel's wrapper hands raw
+    device pointers to its library, which the trace cannot follow. The
+    graph is the one a CPU copy gives, but nothing is copied: at
+    qwen3-0.6b's width a host copy of the state is ~7 GB a trainer."""
     loss_fn: Optional[Callable] = None
     update_fn: Optional[Callable] = None
 
     def validate(self, state: TrainState, batch: Dict, *,
                  loop_bound: int = 1 << 20
                  ) -> Tuple[torch.export.ExportedProgram, ...]:
-        params, opt = _on_cpu(state.params), _on_cpu(state.opt)
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        mode = FakeTensorMode()
+        params, opt = (_fake_on_cpu(state.params, mode),
+                       _fake_on_cpu(state.opt, mode))
         # both halves run without autograd's graph, as in the step
         with torch.no_grad():
             loss = Jash(f"{self.name}/loss", self.loss_fn,
-                        self.meta).validate(params, _on_cpu(batch),
+                        self.meta).validate(params, _fake_on_cpu(batch, mode),
                                             loop_bound=loop_bound)
             # the gradients have the params' shapes and dtypes
             update = Jash(f"{self.name}/update", self.update_fn,

@@ -5,7 +5,7 @@
 // `flash_attention_pallas` (reached through `ops.flash_attention`), whose
 // function is `repro.models.attention.chunked_attention`'s: every prefill
 // layer of a dense model computes it. kernels/flash_attention.py sends
-// float32 (and head dim 32) here; bf16 at head dims 64-256 goes to the
+// float32 (and head dims 16 and 32) here; bf16 at head dims 64-256 goes to the
 // tensor-core kernel, flash_attention_tc.cu.
 //
 // q (B, S, H, hd), k and v (B, T, Kv, hd), out (B, S, H, hd), all in one
@@ -56,7 +56,7 @@
 // - one block owns each output row and reduces its keys in a fixed order
 //   (fixed shuffle trees, no atomics), so the output is the same bits from
 //   launch to launch.
-// The instance with LSE = true (float32 at hd 32, 64 and 128, the training
+// The instance with LSE = true (float32 at hd 16, 32, 64 and 128, the training
 // forward) also writes each row's log-sum-exp of its scaled scores, float32
 // (B, H, S) in natural-log units, for the backward (flash_attention_bwd.cu);
 // the serving instances (LSE = false) compile without that store.
@@ -83,10 +83,11 @@ struct Choice {
     static constexpr int WARPS = FLASH_WARPS, BK = FLASH_BK,
                          STAGES = FLASH_STAGES;
 #else
-    // hd 32 (pnpcoin-demo, S = 32: a launch's latency) takes small tiles;
-    // hd 64 and 128 the tile that reuses each K and V tile most
-    static constexpr int WARPS = HD == 32 ? 4 : 8;
-    static constexpr int BK = HD == 32 ? 32 : 64;
+    // hd 16 and 32 (pnpcoin-micro and pnpcoin-demo, S = 16 and 32: a
+    // launch's latency) take small tiles; hd 64 and 128 the tile that
+    // reuses each K and V tile most
+    static constexpr int WARPS = HD <= 32 ? 4 : 8;
+    static constexpr int BK = HD <= 32 ? 32 : 64;
     static constexpr int STAGES = 1;
 #endif
 };
@@ -102,7 +103,7 @@ struct Tile {
     static constexpr int ROWS_PER_WARP = 2 * TM;
     static constexpr int BQ = WARPS * ROWS_PER_WARP;   // query rows a block
     static constexpr int TN = BK / 16;                 // keys a thread
-    static constexpr int VW = HD == 32 ? 2 : 4;        // columns a V load
+    static constexpr int VW = HD == 16 ? 1 : HD == 32 ? 2 : 4;   // columns a V load
     static constexpr int VC = HD / (16 * VW);          // V loads a key
     static constexpr int LD = HD + 4;                  // Q, K, V row stride
     static constexpr int PK = 32;                      // keys of P at a time
@@ -176,12 +177,18 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* base,
 __device__ __forceinline__ void store_cols(float* dst, const float* x, int n) {
     if (n == 4)
         *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-    else
+    else if (n == 2)
         *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
+    else
+        dst[0] = x[0];
 }
 
 __device__ __forceinline__ void store_cols(__nv_bfloat16* dst, const float* x,
                                            int n) {
+    if (n == 1) {
+        dst[0] = __float2bfloat16_rn(x[0]);
+        return;
+    }
     const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
     if (n == 4) {
         const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
@@ -200,9 +207,11 @@ __device__ __forceinline__ void load_cols(const float* p, float* out) {
     if constexpr (VW == 4) {
         const float4 t = *reinterpret_cast<const float4*>(p);
         out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-    } else {
+    } else if constexpr (VW == 2) {
         const float2 t = *reinterpret_cast<const float2*>(p);
         out[0] = t.x; out[1] = t.y;
+    } else {
+        out[0] = p[0];
     }
 }
 
@@ -467,6 +476,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int64_t B,
               int64_t S, int64_t T_len, int H, int Kv, int hd, int causal,
               int window, cudaStream_t stream) {
     switch (hd) {
+        case 16: return launch<T, 16>(q, k, v, o, B, S, T_len, H, Kv, causal, window, stream);
         case 32: return launch<T, 32>(q, k, v, o, B, S, T_len, H, Kv, causal, window, stream);
         case 64: return launch<T, 64>(q, k, v, o, B, S, T_len, H, Kv, causal, window, stream);
         case 128: return launch<T, 128>(q, k, v, o, B, S, T_len, H, Kv, causal, window, stream);
@@ -500,6 +510,7 @@ int info(int32_t* out) {
 // reports.
 extern "C" int pnp_flash_attention_info(int32_t hd, int32_t* out) {
     switch (hd) {
+        case 16: return info<16>(out);
         case 32: return info<32>(out);
         case 64: return info<64>(out);
         case 128: return info<128>(out);
@@ -509,8 +520,8 @@ extern "C" int pnp_flash_attention_info(int32_t hd, int32_t* out) {
 }
 
 // q: (B, S, H, hd); k, v: (B, T, Kv, hd); out: (B, S, H, hd); contiguous,
-// 16-byte aligned, one dtype: 0 = float32, 1 = bfloat16. hd in {32, 64,
-// 128, 256}; H % Kv == 0; window 0 for none. Launches on `stream` and
+// 16-byte aligned, one dtype: 0 = float32, 1 = bfloat16. hd in {16, 32,
+// 64, 128, 256}; H % Kv == 0; window 0 for none. Launches on `stream` and
 // returns cudaGetLastError().
 extern "C" int pnp_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* out, int64_t B,
@@ -531,8 +542,8 @@ extern "C" int pnp_flash_attention_fwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
 }
 
-// The training forward: as pnp_flash_attention_fwd on float32 at hd 32, 64
-// or 128, and also each row's log-sum-exp of its scaled scores into lse,
+// The training forward: as pnp_flash_attention_fwd on float32 at hd 16,
+// 32, 64 or 128, and also each row's log-sum-exp of its scaled scores into lse,
 // float32 (B, H, S), natural-log units.
 extern "C" int pnp_flash_attention_fwd_lse(const void* q, const void* k,
                                            const void* v, void* out,
@@ -547,6 +558,7 @@ extern "C" int pnp_flash_attention_fwd_lse(const void* q, const void* k,
     const cudaStream_t st = (cudaStream_t)stream;
     float* l = (float*)lse;
     switch (hd) {
+        case 16: return launch<float, 16, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
         case 32: return launch<float, 32, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
         case 64: return launch<float, 64, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
         case 128: return launch<float, 128, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);

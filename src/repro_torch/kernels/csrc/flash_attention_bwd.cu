@@ -82,10 +82,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int PK = 32;          // columns of a P or dS chunk
 constexpr int PS = PK + 16;     // P and dS chunk row stride
 
-// Columns a 16-byte (8 at hd 32) load of an accumulator's operand covers.
+// Columns a 16-byte (8 at hd 32, 4 at hd 16) load of an accumulator's
+// operand covers.
 template <int HD>
 struct Cols {
-    static constexpr int VW = HD == 32 ? 2 : 4;
+    static constexpr int VW = HD == 16 ? 1 : HD == 32 ? 2 : 4;
     static constexpr int VC = HD / (16 * VW);   // loads a row
     static constexpr int LD = HD + 4;           // Q, K, V, dO row stride
 };
@@ -99,11 +100,12 @@ struct DkvTile : Cols<HD> {
                          BQ = BWD_DKV_BQ, STAGES = BWD_DKV_STAGES;
 #else
     // the sweep's fastest: at hd 64 and 128 the largest tile whose K, V
-    // and two stages of Q and dO fit shared memory with 8 warps; at hd 32
-    // (pnpcoin-demo, S = 32: a launch's latency) small tiles
-    static constexpr int WARPS = HD == 32 ? 2 : 8;
+    // and two stages of Q and dO fit shared memory with 8 warps; at hd 16
+    // and 32 (pnpcoin-micro and pnpcoin-demo, S = 16 and 32: a launch's
+    // latency) small tiles
+    static constexpr int WARPS = HD <= 32 ? 2 : 8;
     static constexpr int TM = 8;
-    static constexpr int BQ = HD == 32 ? 32 : 64;
+    static constexpr int BQ = HD <= 32 ? 32 : 64;
     static constexpr int STAGES = 2;
 #endif
     static constexpr int THREADS = 32 * WARPS;
@@ -218,9 +220,11 @@ __device__ __forceinline__ void load_cols(const float* p, float* out) {
     if constexpr (VW == 4) {
         const float4 t = *reinterpret_cast<const float4*>(p);
         out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-    } else {
+    } else if constexpr (VW == 2) {
         const float2 t = *reinterpret_cast<const float2*>(p);
         out[0] = t.x; out[1] = t.y;
+    } else {
+        out[0] = p[0];
     }
 }
 
@@ -229,9 +233,11 @@ __device__ __forceinline__ void load_cols_global(const float* p, float* out) {
     if constexpr (VW == 4) {
         const float4 t = __ldg(reinterpret_cast<const float4*>(p));
         out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-    } else {
+    } else if constexpr (VW == 2) {
         const float2 t = __ldg(reinterpret_cast<const float2*>(p));
         out[0] = t.x; out[1] = t.y;
+    } else {
+        out[0] = __ldg(p);
     }
 }
 
@@ -239,8 +245,10 @@ template <int VW>
 __device__ __forceinline__ void store_cols(float* p, const float* x) {
     if constexpr (VW == 4)
         *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-    else
+    else if constexpr (VW == 2)
         *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+    else
+        p[0] = x[0];
 }
 
 __device__ __forceinline__ float lane_of(const float4& x, int i) {
@@ -800,6 +808,7 @@ extern "C" int64_t pnp_flash_attention_bwd_workspace_words(
         return -1;
 #define PNP_WS_ARGS B, S, T, H, causal, window, ds_cap_bytes
     switch (hd) {
+        case 16: return workspace_words<16>(PNP_WS_ARGS);
         case 32: return workspace_words<32>(PNP_WS_ARGS);
         case 64: return workspace_words<64>(PNP_WS_ARGS);
         case 128: return workspace_words<128>(PNP_WS_ARGS);
@@ -815,6 +824,7 @@ extern "C" int64_t pnp_flash_attention_bwd_workspace_words(
 // none).
 extern "C" int pnp_flash_attention_bwd_info(int32_t hd, int32_t* out) {
     switch (hd) {
+        case 16: return info<16>(out);
         case 32: return info<32>(out);
         case 64: return info<64>(out);
         case 128: return info<128>(out);
@@ -823,7 +833,7 @@ extern "C" int pnp_flash_attention_bwd_info(int32_t hd, int32_t* out) {
 }
 
 // q, o, dout, dq: (B, S, H, hd); k, v, dk, dv: (B, T, Kv, hd); lse: (B, H,
-// S); float32, contiguous, 16-byte aligned; hd in {32, 64, 128}; H % Kv ==
+// S); float32, contiguous, 16-byte aligned; hd in {16, 32, 64, 128}; H % Kv ==
 // 0; window 0 for none; ws: pnp_flash_attention_bwd_workspace_words words
 // (the kernels initialise it) at the same ds_cap_bytes. Launches on
 // `stream` dot_kernel, then a dkv_kernel and a dq_kernel a chunk of key
@@ -848,6 +858,7 @@ extern "C" int pnp_flash_attention_bwd(const void* q, const void* k,
         (float*)dv, (float*)ws, B, S, T, H, Kv, causal, window,            \
         ds_cap_bytes, st
     switch (hd) {
+        case 16: return launch<16>(PNP_BWD_ARGS);
         case 32: return launch<32>(PNP_BWD_ARGS);
         case 64: return launch<64>(PNP_BWD_ARGS);
         case 128: return launch<128>(PNP_BWD_ARGS);

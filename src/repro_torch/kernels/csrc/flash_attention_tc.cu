@@ -55,6 +55,14 @@
 // - deterministic: one warpgroup owns each output row and its keys reduce
 //   in a fixed order (no split over keys, no atomics), so two launches
 //   give equal bits.
+//
+// The training instance (LSE = true, hd 64 and 128; the forward of
+// kernels/flash_attention.py's autograd Function for bfloat16) also writes
+// each row's log-sum-exp of its scaled scores, float32 (B, H, S) in
+// natural-log units, for the backward (flash_attention_tc_bwd.cu); a row
+// that sees no key writes -1e30, as ref.flash_attention_lse_ref does. Its
+// output is the serving instance's (LSE = false) bit for bit: the store is
+// the only difference.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +79,8 @@ constexpr int CONSUMER_WARPS = 8;
 constexpr int PRODUCER_REGS = 40;    // 2 x 128 x 232 + 128 x 40 = 384 x 168
 constexpr int CONSUMER_REGS = 232;
 constexpr int ROW_BYTES = 128;       // a 64-column chunk row: the swizzle's width
+constexpr float NEG_INF_LSE = -1e30f;  // the log-sum-exp of a row with no key
+constexpr float LN2 = 0.6931471805599453f;
 
 // Keys a tile and stages in the ring, by head dim: the S tile (64 x BK)
 // and the O accumulator (64 x hd) of a consumer thread share its registers,
@@ -387,13 +397,14 @@ __device__ __forceinline__ Item work_item(int w, int S, int T_len, int H, int B,
     return it;
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, int B, int S, int T_len, int H,
-                int Kv, int causal, int window, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
+                int S, int T_len, int H, int Kv, int causal, int window,
+                float scale_log2) {
     constexpr int BK = Tile<HD>::BK, STAGES = Tile<HD>::STAGES;
     constexpr int CHUNKS = HD / 64;
     constexpr uint32_t Q_BYTES = BQ * HD * 2, KV_BYTES = BK * HD * 2;
@@ -635,6 +646,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 l += __shfl_xor_sync(0xffffffffu, l, 2);
                 const int row = st.ra + 8 * i;
                 if (row >= S) continue;
+                if constexpr (LSE) {
+                    // in the log2 domain of the raw scores the row's
+                    // log-sum-exp is m scale_log2 + log2 l; the quad's four
+                    // threads hold the same m and l, the first writes
+                    if (lane % 4 == 0)
+                        lse[((size_t)item.b * H + item.h) * S + row] =
+                            st.m[i] == -INFINITY
+                                ? NEG_INF_LSE
+                                : (st.m[i] * scale_log2 + __log2f(l)) * LN2;
+                }
                 const float inv = rcp(fmaxf(l, 1e-20f));
                 __nv_bfloat16* dst =
                     o + (((size_t)item.b * S + row) * H + item.h) * HD + st.col;
@@ -689,21 +710,21 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int64_t B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool LSE = false>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int64_t S, int64_t T_len, int H, int Kv, int causal, int window,
-           cudaStream_t stream) {
+           cudaStream_t stream, float* lse = nullptr) {
     const EncodeTiled fn = encode_tiled();
     if (fn == nullptr) return (int)cudaErrorNotSupported;
     cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, flash_tc_kernel<HD>);
+    cudaError_t err = cudaFuncGetAttributes(&attr, flash_tc_kernel<HD, LSE>);
     if (err != cudaSuccess) return (int)err;
     // setmaxnreg only moves registers between the block's warpgroups: the
     // block must start with all that the consumers and the producer take
     if (attr.numRegs * THREADS < 256 * CONSUMER_REGS + 128 * PRODUCER_REGS)
         return (int)cudaErrorInvalidConfiguration;
     constexpr int smem = smem_bytes<HD>();
-    err = cudaFuncSetAttribute(flash_tc_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_tc_kernel<HD, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     alignas(64) CUtensorMap mq, mk, mv;
@@ -719,33 +740,43 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
     if (err != cudaSuccess) return (int)err;
     const int64_t n_work = (S + BQ - 1) / BQ * H * B;
     if (n_work > INT32_MAX) return (int)cudaErrorInvalidValue;
-    flash_tc_kernel<HD><<<(unsigned int)std::min<int64_t>(n_work, sms), THREADS, smem,
-                          stream>>>(mq, mk, mv, (__nv_bfloat16*)o, (int)B, (int)S,
-                                    (int)T_len, H, Kv, causal, window,
-                                    1.4426950408889634f / sqrtf((float)HD));
+    flash_tc_kernel<HD, LSE><<<(unsigned int)std::min<int64_t>(n_work, sms), THREADS,
+                               smem, stream>>>(
+        mq, mk, mv, (__nv_bfloat16*)o, lse, (int)B, (int)S, (int)T_len, H, Kv,
+        causal, window, 1.4426950408889634f / sqrtf((float)HD));
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // The registers a thread, dynamic shared memory and local memory (spills)
-// of the kernel at head dim `hd`, as the runtime reports them.
-extern "C" int pnp_flash_attention_tc_info(int32_t hd, int32_t* registers,
+// of the kernel at head dim `hd`, as the runtime reports them: the serving
+// instance, or with `lse` the training instance (hd 64 and 128).
+extern "C" int pnp_flash_attention_tc_info(int32_t hd, int32_t lse,
+                                           int32_t* registers,
                                            int32_t* shared_bytes,
                                            int32_t* local_bytes) {
     cudaFuncAttributes attr;
     cudaError_t err;
-    switch (hd) {
-        case 64:
-            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<64>);
+    switch (hd * 2 + (lse != 0)) {
+        case 128:
+            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<64, false>);
             *shared_bytes = smem_bytes<64>();
             break;
-        case 128:
-            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<128>);
-            *shared_bytes = smem_bytes<128>();
+        case 129:
+            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<64, true>);
+            *shared_bytes = smem_bytes<64>();
             break;
         case 256:
-            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<256>);
+            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<128, false>);
+            *shared_bytes = smem_bytes<128>();
+            break;
+        case 257:
+            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<128, true>);
+            *shared_bytes = smem_bytes<128>();
+            break;
+        case 512:
+            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<256, false>);
             *shared_bytes = smem_bytes<256>();
             break;
         default: return (int)cudaErrorInvalidValue;
@@ -776,6 +807,30 @@ extern "C" int pnp_flash_attention_tc_fwd(const void* q, const void* k,
         case 64: return launch<64>(q, k, v, out, B, S, T, H, Kv, causal, window, st);
         case 128: return launch<128>(q, k, v, out, B, S, T, H, Kv, causal, window, st);
         case 256: return launch<256>(q, k, v, out, B, S, T, H, Kv, causal, window, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The training forward: as pnp_flash_attention_tc_fwd at hd 64 or 128, and
+// also each row's log-sum-exp of its scaled scores into lse, float32 (B, H,
+// S), natural-log units (-1e30 for a row that sees no key).
+extern "C" int pnp_flash_attention_tc_fwd_lse(const void* q, const void* k,
+                                              const void* v, void* out, void* lse,
+                                              int64_t B, int64_t S, int64_t T,
+                                              int32_t H, int32_t Kv, int32_t hd,
+                                              int32_t causal, int32_t window,
+                                              void* stream) {
+    if (B < 0 || S < 0 || T < 1 || H < 1 || Kv < 1 || H % Kv || window < 0 ||
+        S > INT32_MAX || T > INT32_MAX || B > 65535 || H > 65535)
+        return (int)cudaErrorInvalidValue;
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+        return (int)cudaErrorMisalignedAddress;
+    if (B == 0 || S == 0) return 0;
+    const cudaStream_t st = (cudaStream_t)stream;
+    float* l = (float*)lse;
+    switch (hd) {
+        case 64: return launch<64, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
+        case 128: return launch<128, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
         default: return (int)cudaErrorInvalidValue;
     }
 }

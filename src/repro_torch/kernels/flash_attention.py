@@ -7,25 +7,29 @@ absolute position, optionally within a local window. Both map each query
 head to its KV head by index (GQA and MQA) and mask ragged S and T
 themselves. ``csrc/flash_attention_tc.cu`` runs bfloat16 at head dims 64,
 128 and 256 on the tensor cores (``flash_attention_tc``);
-``csrc/flash_attention.cu`` runs everything else (float32, and head dim
-32) on the CUDA cores. ``kernel_for`` is the rule, by dtype and head dim
-alone; there is no fallback from one kernel to the other.
+``csrc/flash_attention.cu`` runs everything else (float32, and head dims
+16 and 32) on the CUDA cores. ``kernel_for`` is the rule, by dtype and
+head dim alone; there is no fallback from one kernel to the other.
 ``kernels/ops.py`` sends CUDA tensors here and CPU tensors to
 ``ref.flash_attention_ref``.
 
-For training, ``FlashAttention`` is the autograd Function over the
-CUDA-core kernel in float32: its forward launches the kernel's instance
-that also saves each row's log-sum-exp (``flash_attention_lse_cuda``), and
-its backward launches the hand-written backward
-(``flash_attention_bwd.flash_attention_bwd_cuda``).
+For training, ``FlashAttention`` is the autograd Function: in float32 its
+forward launches the CUDA-core kernel's instance that also saves each
+row's log-sum-exp (``flash_attention_lse_cuda``) and its backward the
+CUDA-core backward (``flash_attention_bwd.flash_attention_bwd_cuda``); in
+bfloat16 at head dims 64 and 128 the tensor-core kernel's training
+instance (``flash_attention_tc.flash_attention_tc_lse_cuda``) and the
+tensor-core backward (``flash_attention_tc_bwd``). ``train_kernels_for``
+is that rule; any other dtype or head dim raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import flash_attention_bwd, flash_attention_tc, native
+from repro_torch.kernels import (flash_attention_bwd, flash_attention_tc,
+                                 flash_attention_tc_bwd, native)
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # the training instance (with the row log-sum-exp) and the backward
 TRAIN_HEAD_DIMS = flash_attention_bwd.HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +48,23 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in flash_attention_tc.HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
+
+
+def train_kernels_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernels ``FlashAttention`` launches: "cuda_core" for float32 at
+    ``TRAIN_HEAD_DIMS``, "tensor_core" for bfloat16 at
+    ``flash_attention_tc.TRAIN_HEAD_DIMS``; anything else raises, naming
+    the instance it lacks."""
+    if dtype == torch.float32 and head_dim in TRAIN_HEAD_DIMS:
+        return "cuda_core"
+    if (dtype == torch.bfloat16
+            and head_dim in flash_attention_tc.TRAIN_HEAD_DIMS):
+        return "tensor_core"
+    raise TypeError(
+        f"flash attention with grad: no training instance for {dtype} at "
+        f"head dim {head_dim} (float32 at {TRAIN_HEAD_DIMS}, bfloat16 at "
+        f"{flash_attention_tc.TRAIN_HEAD_DIMS}; bfloat16 at head dim 256: "
+        "ROADMAP.md §1, training the hybrid and ssm families)")
 
 
 def tile(head_dim: int) -> dict:
@@ -124,29 +145,28 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with its gradient on the card: the forward is the CUDA-core
-    kernel's training instance, the backward the hand-written backward
-    kernel on the saved q, k, v, output and row log-sum-exp. float32 at
-    head dims 32, 64 and 128; bfloat16 raises (bf16 training waits for a
-    tensor-core backward, ROADMAP.md §1, item 4)."""
+    """Attention with its gradient on the card: the forward is a kernel's
+    training instance, the backward a hand-written backward kernel on the
+    saved q, k, v, output and row log-sum-exp, as ``train_kernels_for``
+    chooses: float32 at head dims 16, 32, 64 and 128 on the CUDA cores,
+    bfloat16 at 64 and 128 on the tensor cores. Anything else raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        if q.dtype != torch.float32:
-            raise TypeError(
-                f"flash attention with grad: {q.dtype} is not trained on "
-                "the card; float32 only (bf16 training: ROADMAP.md §1, "
-                "item 4)")
-        out, lse = flash_attention_lse_cuda(q, k, v, causal=causal,
-                                            window=window)
+        kind = train_kernels_for(q.dtype, q.shape[-1])
+        fwd = (flash_attention_lse_cuda if kind == "cuda_core"
+               else flash_attention_tc.flash_attention_tc_lse_cuda)
+        out, lse = fwd(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.kind = causal, window, kind
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd.flash_attention_bwd_cuda(
-            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
-            window=ctx.window)
+        bwd = (flash_attention_bwd.flash_attention_bwd_cuda
+               if ctx.kind == "cuda_core"
+               else flash_attention_tc_bwd.flash_attention_tc_bwd_cuda)
+        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(),
+                         causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import native
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 
 # Calls of the backward since the last reset (each launches its kernels);
 # only the call below adds to it.
@@ -70,8 +70,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     global launches
     if q.dtype != torch.float32:
         raise TypeError(
-            f"flash_attention_bwd_cuda: {q.dtype}; the backward is float32 "
-            "only (bf16 training: ROADMAP.md §1, item 4)")
+            f"flash_attention_bwd_cuda: {q.dtype}; this backward is float32 "
+            "only (bf16 runs flash_attention_tc_bwd's)")
     native.check_qkv("flash_attention_bwd_cuda", q, k, v, window,
                      {torch.float32: 0}, HEAD_DIMS)
     B, S, H, hd = q.shape

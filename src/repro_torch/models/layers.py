@@ -5,10 +5,10 @@ dtypes. Initialisers take either a ``torch.Generator`` or a key of
 ``repro_torch.random`` (the port's copy of ``jax.random``'s threefry
 stream). With a generator they draw ``torch.randn`` on its device, which
 is quick at any size (serving at 7B); with a key they draw the
-reference's numbers on the host CPU, splitting the key as the reference
-does, so a model initialised from ``random.key(seed)`` starts from the
-weights the reference's ``Model.init(jax.random.key(seed))`` gives (within
-``random.normal``'s last bits).
+reference's numbers on the key's device, splitting the key as the
+reference does, so a model initialised from ``random.key(seed)`` starts
+from the weights the reference's ``Model.init(jax.random.key(seed))``
+gives (within ``random.normal``'s last bits).
 """
 from __future__ import annotations
 
@@ -34,11 +34,9 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def rng_device(rng: Rng) -> torch.device:
-    """Where an initialiser makes its tensors: the generator's device, or
-    the CPU for a threefry key."""
-    if isinstance(rng, torch.Generator):
-        return rng.device
-    return torch.device("cpu")
+    """Where an initialiser makes its tensors: the generator's or the
+    threefry key's device."""
+    return rng.device
 
 
 def split_rng(rng: Rng, n: int) -> List[Rng]:
@@ -58,7 +56,7 @@ def _normal(rng: Rng, shape, std: float, dtype) -> torch.Tensor:
         # the reference multiplies in float32 by its scale rounded to
         # float32
         x = random.normal(rng, shape)
-        std = torch.tensor(std, dtype=torch.float32)
+        std = torch.tensor(std, dtype=torch.float32, device=x.device)
     return (x * std).to(dtype)
 
 

@@ -218,7 +218,7 @@ class Model:
         """Random params in the reference's layout: from a generator, on
         its device; from a threefry key of ``repro_torch.random``, the
         reference's draws (its ``split(key, 8)`` and ``fold_in`` tree), on
-        the CPU."""
+        the key's device."""
         cfg = self.cfg
         dt = compute_dtype(cfg)
         if not isinstance(rng, torch.Generator):

@@ -3,8 +3,7 @@
 The reference draws its token batches (``data/pipeline.py``) and its
 initial weights (``models/*.py``) from ``jax.random`` keys. A port node
 that trains the same chain must start from the same bits, so this module
-computes the same functions on the host CPU, whatever device the node
-trains on:
+computes the same functions, on the device the key lies on:
 
     key(seed)             -> key (the words of ``jax.random.key(seed)``)
     split(key, num)       -> (num, 2) keys
@@ -22,9 +21,13 @@ carry past them, since torch's uint32 lacks shifts, adds and remainders.
 ``fold_in`` also takes a tensor of data, and ``bits`` and ``normal`` a
 batch of keys (..., 2), drawing ``shape`` under each: each row equals the
 call on its own key bit for bit, as ``jax.vmap`` of the scalar call
-gives. ``normal_concat`` draws on the device it is given (ES noise on the
-card): the integer words are the same there, but ``normal``'s ``log1p``
-may round differently on another device.
+gives. Every draw runs on its key's device (``normal_concat`` on the
+device it is given): a model's initial weights and ES noise are drawn on
+the card that trains it, where a host draw of qwen3-0.6b's 596M weights
+in int64 words would take minutes and tens of GB. The integer words are
+the same on every device, but ``normal``'s ``log1p`` may round
+differently on another device, so the nodes of one chain draw on the same
+kind of device.
 
 The stream is the one JAX draws with ``jax_threefry_partitionable=True``
 (the default of the JAX releases the reference's tests run on; older
@@ -130,7 +133,7 @@ def fold_in(key: torch.Tensor,
         lo = data.to(torch.int64) & MASK32
         return torch.stack(threefry2x32(*_words(key), torch.zeros_like(lo),
                                         lo), dim=-1)
-    zero = torch.zeros(1, dtype=torch.int64)
+    zero = torch.zeros(1, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(*_words(key), zero, zero + (int(data) & MASK32))
     return torch.cat([b1, b2])
 
@@ -229,17 +232,45 @@ def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     return _normal_of_bits(bits(key, shape))
 
 
+# elements ``normal_concat`` draws at a time: its int64 words and their
+# temporaries stay near a GB whatever the model's size
+PIECE = 1 << 24
+
+
 def normal_concat(keys: torch.Tensor, sizes: Sequence[int],
                   device: DeviceLike = None) -> torch.Tensor:
     """``normal(keys[i], (sizes[i],))`` for each of the (L, 2) keys,
-    concatenated: many keys' draws of different sizes in one pass (each
-    element's counter is its index within its own draw)."""
+    concatenated into one float32 tensor on ``device`` (each element's
+    counter is its index within its own draw). The draws go in passes of
+    at most ``PIECE`` elements, as many whole draws a pass as fit, a
+    longer draw split over passes; an element's value depends on its key
+    and counter alone, so the passes change no bit."""
     dev = torch.device(device) if device is not None else keys.device
-    sizes_t = torch.tensor(list(sizes), dtype=torch.int64, device=dev)
-    starts = torch.cumsum(sizes_t, 0) - sizes_t
-    idx = torch.arange(int(sizes_t.sum()), dtype=torch.int64, device=dev)
-    idx = idx - torch.repeat_interleave(starts, sizes_t)
-    k1, k2 = (torch.repeat_interleave(keys[:, w].to(dev), sizes_t)
-              for w in (0, 1))
-    b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK32)
-    return _normal_of_bits(b1 ^ b2)
+    keys = keys.to(dev)
+    # (draw, first counter, length) runs of at most PIECE elements, grouped
+    # in order into passes of at most PIECE elements
+    runs = [(i, lo, min(PIECE, n - lo)) for i, n in enumerate(sizes)
+            for lo in range(0, n, PIECE)]
+    passes, count = [[]], 0
+    for run in runs:
+        if passes[-1] and count + run[2] > PIECE:
+            passes.append([])
+            count = 0
+        passes[-1].append(run)
+        count += run[2]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    at = 0
+    for group in filter(None, passes):
+        draw, first, length = (torch.tensor(col, dtype=torch.int64,
+                                            device=dev)
+                               for col in zip(*group))
+        n = sum(r[2] for r in group)
+        starts = torch.cumsum(length, 0) - length
+        idx = torch.arange(n, dtype=torch.int64, device=dev) - \
+            torch.repeat_interleave(starts - first, length, output_size=n)
+        k1, k2 = (torch.repeat_interleave(keys[draw, w], length,
+                                          output_size=n) for w in (0, 1))
+        b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK32)
+        out[at:at + n] = _normal_of_bits(b1 ^ b2)
+        at += n
+    return out

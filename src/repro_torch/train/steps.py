@@ -50,15 +50,33 @@ def _flatten_with_path(tree: Any, path: Tuple[str, ...] = ()
         yield "/".join(path), tree
 
 
-def _canonical_leaf(leaf: Any) -> np.ndarray:
-    """Little-endian, C-contiguous host copy of a leaf: the only byte order
-    a digest may ever see, whatever device the tensor lives on."""
+# the dtype string numpy gives a JAX bfloat16 array (``ml_dtypes``)
+BF16_DTYPE_STR = "<V2"
+
+
+def host_leaf(leaf: Any) -> Tuple[np.ndarray, str]:
+    """A leaf on the host and its dtype string, as the reference's bytes
+    give them: numpy has no bfloat16, so a bf16 leaf is its bits as int16
+    under the reference's dtype string, ``'<V2'``. The one place that
+    decides how a leaf is framed, for digests and checkpoints alike."""
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu().numpy()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).cpu().numpy(), BF16_DTYPE_STR
+        leaf = leaf.cpu().numpy()
     arr = np.asarray(leaf)
-    if arr.dtype.str.startswith(">"):
+    return arr, arr.dtype.str
+
+
+def _canonical_leaf(leaf: Any) -> Tuple[np.ndarray, str]:
+    """Little-endian, C-contiguous host copy of a leaf (the only byte
+    order a digest may ever see, whatever device the tensor lives on) and
+    its dtype string (``host_leaf``)."""
+    arr, dtype = host_leaf(leaf)
+    if dtype.startswith(">"):
         arr = arr.astype(arr.dtype.newbyteorder("<"))
-    return np.ascontiguousarray(arr)
+        dtype = arr.dtype.str
+    return np.ascontiguousarray(arr), dtype
 
 
 def canonical_tree_bytes(tree: Any) -> Iterator[bytes]:
@@ -67,8 +85,8 @@ def canonical_tree_bytes(tree: Any) -> Iterator[bytes]:
     reference's, so both packages commit the same digest for the same
     values. Leaves are gathered to the host first."""
     for pstr, leaf in _flatten_with_path(tree):
-        arr = _canonical_leaf(leaf)
-        yield pstr.encode() + b"\x00" + arr.dtype.str.encode() + b"\x00"
+        arr, dtype = _canonical_leaf(leaf)
+        yield pstr.encode() + b"\x00" + dtype.encode() + b"\x00"
         yield np.int64(arr.ndim).tobytes()
         yield np.asarray(arr.shape, np.int64).tobytes()
         yield arr.tobytes(order="C")
@@ -102,10 +120,10 @@ class TrainHparams:
 def make_train_state(cfg: ModelConfig, key: Any,
                      device: DeviceLike = None) -> TrainState:
     """Params from ``Model.init(key)`` (a threefry key of
-    ``repro_torch.random`` draws the reference's weights on the host) on
-    ``device``, and zeroed AdamW state."""
+    ``repro_torch.random``: the reference's weights, drawn on ``device``
+    itself) and zeroed AdamW state in ``cfg.opt_dtype``."""
     dev = resolve(device)
-    params = tree_map(lambda t: t.to(dev), build_model(cfg).init(key))
+    params = build_model(cfg).init(key.to(dev))
     return TrainState(params=params,
                       opt=adamw_init(params, getattr(torch, cfg.opt_dtype)))
 

@@ -689,7 +689,7 @@ _BWD_CASES = [(2, 33, 33, 4, 2, True, 0), (1, 100, 100, 8, 1, True, 0),
 BWD_TOL = 1e-5
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("case", _BWD_CASES)
 def test_flash_backward_kernel_matches_its_twin(card, hd, case):
     from repro_torch.kernels import flash_attention_bwd
@@ -749,7 +749,7 @@ def test_flash_backward_in_chunks_of_key_tiles(card, monkeypatch, case, hd,
         assert torch.allclose(g, w, rtol=BWD_TOL, atol=BWD_TOL)
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_lse_instance_equals_the_serving_instance(card, hd):
     gen = torch.Generator(device=card).manual_seed(hd)
     q, k, v = (torch.randn(shape, generator=gen, device=card) for shape in
@@ -764,19 +764,126 @@ def test_flash_lse_instance_equals_the_serving_instance(card, hd):
 
 
 def test_flash_backward_raises_for_what_it_cannot_take(card):
-    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels import flash_attention_bwd, flash_attention_tc_bwd
     q = torch.randn(1, 8, 2, 32, device=card)
     o, lse = flash_attention.flash_attention_lse_cuda(q, q, q, causal=True)
-    with pytest.raises(TypeError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="float32 only"):
         flash_attention_bwd.flash_attention_bwd_cuda(
             q.bfloat16(), q.bfloat16(), q.bfloat16(), o, lse, o,
             causal=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
+            q, q, q, o, lse, o, causal=True)
+    # no training instance: float32 at hd 256, bf16 at hd 256 and 32
     x = torch.randn(1, 8, 2, 256, device=card, requires_grad=True)
-    with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention(x, x, x, causal=True)
     with pytest.raises(TypeError, match="ROADMAP"):
-        y = torch.randn(1, 8, 2, 64, device=card).bfloat16()
-        ops.flash_attention(y.requires_grad_(True), y, y, causal=True)
+        ops.flash_attention(x, x, x, causal=True)
+    for hd in (256, 32):
+        y = torch.randn(1, 8, 2, hd, device=card).bfloat16()
+        with pytest.raises(TypeError, match="ROADMAP"):
+            ops.flash_attention(y.requires_grad_(True), y, y, causal=True)
+
+
+# the bf16 tensor-core backward's cases: (B, S, T, H, Kv, causal, window)
+_TC_BWD_CASES = [(2, 33, 33, 4, 4, True, 0), (1, 100, 100, 8, 4, True, 0),
+                 (2, 70, 150, 8, 1, False, 0), (1, 150, 70, 4, 2, True, 0),
+                 (2, 90, 90, 4, 4, True, 17), (1, 129, 129, 16, 2, True, 0),
+                 (1, 100, 40, 2, 1, True, 20), (3, 1, 1, 2, 1, True, 0)]
+# |kernel - twin as bf16| <= TC_BWD_TOL max(1, max |twin|): the kernel
+# rounds P and dS to bf16 for its products and its results to bf16
+TC_BWD_TOL = 2e-2
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("case", _TC_BWD_CASES)
+def test_flash_tc_backward_kernel_matches_its_twin(card, hd, case):
+    from repro_torch.kernels import flash_attention_tc, flash_attention_tc_bwd
+    B, S, T, H, Kv, causal, window = case
+    gen = torch.Generator(device=card).manual_seed(hd + S + T + H)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).bfloat16()
+               for shape in ((B, S, H, hd), (B, T, Kv, hd), (B, T, Kv, hd)))
+    o, lse = flash_attention_tc.flash_attention_tc_lse_cuda(
+        q, k, v, causal=causal, window=window)
+    assert torch.equal(o, flash_attention_tc.flash_attention_tc_cuda(
+        q, k, v, causal=causal, window=window))
+    assert torch.allclose(lse, ref.flash_attention_lse_ref(
+        q, k, v, causal=causal, window=window), rtol=1e-4, atol=1e-4)
+    do = torch.randn(o.shape, generator=gen, device=card).bfloat16()
+    before = flash_attention_tc_bwd.launches
+    got = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    assert flash_attention_tc_bwd.launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, a)
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.float() - w.bfloat16().float()).abs().max()) <= \
+            TC_BWD_TOL * scale
+
+
+def test_flash_tc_backward_in_chunks_of_batch_rows(card, monkeypatch):
+    """A cap on the dS^T workspace of one batch row: the rows go one a
+    launch, bit-equal to one launch for all."""
+    from repro_torch.kernels import flash_attention_tc, flash_attention_tc_bwd
+    gen = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).bfloat16()
+               for shape in ((3, 130, 4, 128), (3, 130, 2, 128),
+                             (3, 130, 2, 128)))
+    o, lse = flash_attention_tc.flash_attention_tc_lse_cuda(q, k, v,
+                                                            causal=True)
+    do = torch.randn(o.shape, generator=gen, device=card).bfloat16()
+    whole = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
+        q, k, v, o, lse, do, causal=True)
+    monkeypatch.setattr(flash_attention_tc_bwd, "DS_CAP_BYTES",
+                        4 * 192 * 192 * 2)
+    assert flash_attention_tc_bwd.rows_a_chunk(130, 130, 4) == 1
+    rows = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
+        q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(whole, rows))
+
+
+def test_ops_flash_attention_carries_bf16_gradient_through_tc_kernels(card):
+    from repro_torch.kernels import flash_attention_tc, flash_attention_tc_bwd
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).bfloat16()
+               .requires_grad_(True) for shape in
+               ((2, 64, 16, 128), (2, 64, 8, 128), (2, 64, 8, 128)))
+    before = (flash_attention_tc.lse_launches, flash_attention_tc_bwd.launches,
+              flash_attention.launches)
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    assert (flash_attention_tc.lse_launches - before[0],
+            flash_attention_tc_bwd.launches - before[1],
+            flash_attention.launches - before[2]) == (1, 1, 0)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        ref.flash_attention_ref(*cpu, causal=True).float().square().sum(),
+        cpu)
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.cpu().float() - w.float()).abs().max()) <= \
+            TC_BWD_TOL * scale
+
+
+def test_two_fresh_qwen3_cut_trainers_agree_bit_for_bit(card):
+    """qwen3-0.6b cut to 2 layers at full width, bf16, 4 full-mode blocks
+    on two fresh trainers: the same losses, digests and hashes (cuBLAS's
+    bf16 products and the hand kernels repeat bit for bit)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.pow_train import PoUWTrainer
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+    trainers = [PoUWTrainer(cfg, InputShape("cut", 64, 2, "train"),
+                            device="cuda") for _ in range(2)]
+    recs = [t.run(4) for t in trainers]
+    assert [(r.loss, r.state_digest, r.block_hash) for r in recs[0]] == \
+        [(r.loss, r.state_digest, r.block_hash) for r in recs[1]]
+    assert trainers[0].state.params["embed"].dtype == torch.bfloat16
 
 
 def test_ops_flash_attention_carries_the_gradient_through_the_kernels(card):
