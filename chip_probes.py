@@ -50,15 +50,24 @@ Prints one JSON line per probe, each with the card's name and power limit
      wrapper caps dS, that second shape in chunks against one chunk in
      turns. ``--src DIR`` measures another tree's backward, as for
      merkle_host;
- 12. merkle_units: the Merkle reduction over the nodes a block takes in and
+ 12. flash_tc_bwd_tiles: the bf16 backward at the train CLI's call and
+     qwen3-0.6b's prefill shape (causal), held against the plain twin and
+     bit-equal from launch to launch, by events in turns with SDPA's bf16
+     backward and from a CUDA graph: the tree's wrapper (its split by
+     kernel and its peak memory over its inputs) and, without ``--src``,
+     the sweep of its tiles (keys a block, ring stages, resident buffers,
+     the register split) with each variant's ptxas registers and spills.
+     ``--src DIR`` times DIR's wrapper (another tree of this repo, e.g. the
+     parent's, unpacked by ``git archive``), as for merkle_host;
+ 13. merkle_units: the Merkle reduction over the nodes a block takes in and
      the levels it reduces them through, at the mining path's 2**20 leaves
      and a forest of 4 x 2**16, from a CUDA graph;
- 13. merkle_host: the host clock of a 2**20-leaf full result's
+ 14. merkle_host: the host clock of a 2**20-leaf full result's
      ``commit_root()`` split into its steps, and of
      ``recompute_roots_batched`` on it. ``--src DIR`` imports
      ``repro_torch`` from DIR/src instead (another tree of this repo, so
      two trees can be compared in turns in one run);
- 14. profiler_count: whether ``torch.profiler`` records all three SHA-256
+ 15. profiler_count: whether ``torch.profiler`` records all three SHA-256
      kernels of three calls, over 200 sessions launching as soon as the
      session starts and stopping as soon as the card has synchronised,
      and 200 with quiet time at both ends, in turns (the count of
@@ -484,6 +493,8 @@ def main() -> int:
         probe_flash_bwd_tiles(gpu)
     if want("flash_bwd_memory"):
         probe_flash_bwd_memory(gpu)
+    if want("flash_tc_bwd_tiles"):
+        probe_flash_tc_bwd_tiles(gpu)
     if want("merkle_units"):
         probe_merkle_units(gpu)
     if want("merkle_host"):
@@ -496,7 +507,8 @@ def main() -> int:
 PROBES = ("shared_loads", "fp32_issue", "wkv6_step_loop", "wkv6_per_step",
           "int_issue", "memory_in_flight", "decay_scan_tiles",
           "sha256_blocks", "flash_tiles", "flash_bwd_tiles",
-          "flash_bwd_memory", "merkle_units", "merkle_host",
+          "flash_bwd_memory", "flash_tc_bwd_tiles", "merkle_units",
+          "merkle_host",
           "profiler_count")
 
 
@@ -612,24 +624,33 @@ def build_variants(source: str, variants: dict, logs: dict = None) -> dict:
     touched. ``logs``, if given, gets each variant's nvcc output (ptxas's
     registers and spills)."""
     from repro_torch.kernels import native
+    import hashlib
     out = ROOT / "build" / "repro_torch_probes"
     out.mkdir(parents=True, exist_ok=True)
     src = native.CSRC / source
-    libs = {label: out / f"{src.stem}_{i}.so"
-            for i, label in enumerate(variants)}
+    # a variant is named by its source (and the headers beside it) and
+    # flags, and built once: a second run of a probe in one call reuses it
+    text = b"".join(p.read_bytes() for p in [src, *sorted(
+        native.CSRC.glob("*.cuh"))])
+    libs = {label: out / "{}_{}.so".format(src.stem, hashlib.sha256(
+        text + " ".join(native.NVCC_FLAGS + flags).encode()).hexdigest()[:12])
+        for label, flags in variants.items()}
     procs = {label: subprocess.Popen(
         [native._nvcc(), *native.NVCC_FLAGS, *flags, "-shared", "-o",
          str(libs[label]), str(src)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-        for label, flags in variants.items()}
+        for label, flags in variants.items()
+        if not libs[label].with_suffix(".log").exists()}
     try:
         for label, proc in procs.items():
             text, _ = proc.communicate(timeout=600)
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on {source} {label}:\n"
                                    f"{text}")
+            libs[label].with_suffix(".log").write_text(text)
+        for label in variants:
             if logs is not None:
-                logs[label] = text
+                logs[label] = libs[label].with_suffix(".log").read_text()
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -877,9 +898,10 @@ def ptxas_kernels(log: str, pattern: str) -> dict:
     return out
 
 
-def kernel_split(fn, calls: int = 5) -> dict:
+def kernel_split(fn, calls: int = 5, pattern: str = BWD_KERNELS) -> dict:
     """Device ms and launches a call of each CUDA kernel ``fn`` launches,
-    by ``torch.profiler`` over ``calls`` calls (quiet time at both ends)."""
+    by ``torch.profiler`` over ``calls`` calls (quiet time at both ends);
+    kernels named by ``pattern``'s group 1 where it matches."""
     import time
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -894,7 +916,7 @@ def kernel_split(fn, calls: int = 5) -> dict:
     ms, n = collections.Counter(), collections.Counter()
     for e in prof.events():
         if e.device_type.name == "CUDA":
-            found = re.search(BWD_KERNELS, e.name)
+            found = re.search(pattern, e.name)
             name = found[1] if found else e.name[:40]
             ms[name] += e.device_time / 1e3 / calls
             n[name] += 1
@@ -1102,6 +1124,157 @@ def probe_flash_bwd_memory(gpu: str) -> None:
             del outs, fns, got, ws, call
         emit(entry)
         del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+
+
+# the bf16 backward's variants: label -> -D flags of
+# flash_attention_tc_bwd.cu: consumer warpgroups a block (so keys of a dK/dV
+# item and query rows of a dQ item: 64 each), stages of the streamed ring,
+# resident buffers, and the registers `setmaxnreg` leaves the producer (the
+# consumers get the rest). The first is the source's tile
+def _tc_bwd_flags(consumers, stages, buffers, producer_regs):
+    return [f"-DBWD_TC_CONSUMERS={consumers}", f"-DBWD_TC_STAGES={stages}",
+            f"-DBWD_TC_RES_BUFS={buffers}",
+            f"-DBWD_TC_PRODUCER_REGS={producer_regs}"]
+
+
+TC_BWD_VARIANTS = {
+    f"{64 * nc} keys, {st} stages, {rb} buffer{'s' * (rb > 1)}, producer "
+    f"{pr}": _tc_bwd_flags(nc, st, rb, pr)
+    for nc, st, rb, pr in ((2, 3, 1, 24), (2, 2, 2, 24), (2, 4, 1, 24),
+                           (2, 3, 1, 40), (1, 2, 1, 24))}
+# the bf16 backward's kernels, this tree's and (for --src) the two-pass
+# design's before it
+TC_BWD_KERNELS = r"(tc_bwd_kernel|tc_dkv_kernel|tc_dq_kernel|tc_dot_kernel)"
+# the bf16 backward's shapes, causal: (B, S, H, Kv, hd)
+TC_BWD_SHAPES = {"train_cli": (32, 256, 16, 8, 128),
+                 "qwen3-0.6b prefill": (8, 2048, 16, 8, 128)}
+
+
+def probe_flash_tc_bwd_tiles(gpu: str) -> None:
+    """The bf16 backward at ``TC_BWD_SHAPES`` (causal), each call held
+    against the plain twin within chip_smoke.py's ``TC_BWD_TOL`` and
+    bit-equal from launch to launch: the imported tree's wrapper (this one,
+    or ``--src``'s) and, for this tree, each of ``TC_BWD_VARIANTS`` (built
+    from flash_attention_tc_bwd.cu with its -D flags), by events around 10
+    calls in turns with SDPA's bf16 backward (its default backend, K and V
+    repeated to H heads) and replayed from a CUDA graph (SDPA's too); the
+    wrapper's split by kernel (``torch.profiler``) and its peak device
+    memory over its inputs; each variant's ptxas registers and spills."""
+    import torch
+    import repro_torch
+    from chip_smoke import (TC_BWD_TOL, peak_extra_bytes,
+                            sdpa_backward_graph_ms)
+    from repro_torch.kernels import flash_attention_tc as ft
+    from repro_torch.kernels import flash_attention_tc_bwd as ftb
+    from repro_torch.kernels import ref
+    tree = str(Path(repro_torch.__file__).resolve().parents[2])
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    sweep = not any(a.startswith("--src=") for a in sys.argv)
+    logs, libs = {}, {}
+    if sweep:
+        libs = build_variants("flash_attention_tc_bwd.cu", TC_BWD_VARIANTS,
+                              logs)
+        for lib in libs.values():
+            lib.pnp_flash_attention_tc_bwd.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i64,
+                i64, i32, i32, i32, i32, i32, vp]
+            lib.pnp_flash_attention_tc_bwd.restype = ctypes.c_int
+            lib.pnp_flash_attention_tc_bwd_info.argtypes = [i32, vp]
+            lib.pnp_flash_attention_tc_bwd_info.restype = ctypes.c_int
+        emit({"probe": "flash_tc_bwd_tiles", "gpu": gpu, "tree": tree,
+              "flags": TC_BWD_VARIANTS,
+              "ptxas": {label: ptxas_kernels(text, TC_BWD_KERNELS)
+                        for label, text in logs.items()},
+              "ptxas_performance_notes": {
+                  label: [line.strip()[:160] for line in text.splitlines()
+                          if re.search(r"\(C7\d\d\d\)", line)]
+                  for label, text in logs.items()}})
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for shape, (B, S, H, Kv, hd) in TC_BWD_SHAPES.items():
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
+        o, lse = ft.flash_attention_tc_lse_cuda(q, k, v, causal=True)
+        do = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+        scales = [max(1.0, float(w.abs().max())) for w in want]
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for x in (k, v))
+        dot = do.transpose(1, 2).contiguous()
+        sd_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+
+        def sdpa():
+            return torch.autograd.grad(sd_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        def wrapper():
+            return ftb.flash_attention_tc_bwd_cuda(q, k, v, o, lse, do,
+                                                   causal=True)
+        fns, errs = {"sdpa": sdpa, "wrapper": wrapper}, {}
+        outs = [torch.empty_like(x) for x in (q, k, v)]
+        for label, lib in libs.items():
+            info = (ctypes.c_int32 * 11)()
+            _ok(lib.pnp_flash_attention_tc_bwd_info(hd, info))
+            rows = info[0]
+            items = torch.from_numpy(ftb.schedule(
+                B, S, S, H, Kv, True, 0, rows)).cuda()
+            ws = torch.empty((2, B, H, -(-S // rows) * rows),
+                             dtype=torch.float32, device="cuda")
+
+            def call(lib=lib, items=items, ws=ws):
+                _ok(lib.pnp_flash_attention_tc_bwd(
+                    *(t.data_ptr() for t in (q, k, v, o, lse, do, *outs,
+                                             ws[0], ws[1], items)),
+                    items.shape[0], B, S, S, H, Kv, hd, 1, 0,
+                    torch.cuda.current_stream().cuda_stream))
+                return outs
+            fns[label] = call
+        wrong = {}
+        for label, fn in list(fns.items())[1:]:
+            first = [x.clone() for x in fn()]
+            got = fn()
+            err = [float((g.float() - w.bfloat16().float()).abs().max())
+                   for g, w in zip(got, want)]
+            if not all(torch.equal(a, b) for a, b in zip(got, first)):
+                wrong[label] = "two launches differ"
+            elif any(e > TC_BWD_TOL * sc for e, sc in zip(err, scales)):
+                wrong[label] = f"{err} against {scales}"
+            errs[label] = max(e / sc for e, sc in zip(err, scales))
+            del first, got
+        if "wrapper" in wrong:
+            raise RuntimeError(f"bf16 backward at {shape}: {wrong}")
+        # a variant that is wrong is reported and not timed
+        for label in wrong:
+            del fns[label]
+        times = {key: [] for key in fns}
+        for r in range(2):
+            for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                times[key].append(elapsed_ms(
+                    lambda: [fns[key]() for _ in range(10)]) / 10)
+        graph = {key: graph_ms(fn) for key, fn in fns.items()
+                 if key != "sdpa"}
+        graph["sdpa"] = sdpa_backward_graph_ms(qt, kt, vt, dot, backend=None)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        emit({"probe": "flash_tc_bwd_tiles", "gpu": gpu, "tree": tree,
+              "at": shape, "clocks_power_temperature_after": smi,
+              "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal",
+              "ms_by_events_in_turns": {key: statistics.median(t)
+                                        for key, t in times.items()},
+              "ms_from_graph": graph,
+              "wrapper_by_kernel": kernel_split(wrapper,
+                                                pattern=TC_BWD_KERNELS),
+              "wrapper_peak_bytes_over_inputs": peak_extra_bytes(wrapper),
+              "sdpa_peak_bytes_over_inputs": peak_extra_bytes(sdpa),
+              "tolerance": f"max |kernel - twin| <= {TC_BWD_TOL} max(1, max "
+                           "|twin|), each of dQ, dK, dV",
+              "max_err_over_scale": errs, "wrong_variants": wrong})
+        del q, k, v, o, lse, do, want, qt, kt, vt, dot, sd_out, outs, fns
         torch.cuda.empty_cache()
 
 

@@ -51,8 +51,10 @@ On one CUDA card it:
      from a graph), with each call's peak device memory, and the
      forward's training instance in turns with its serving instance and
      SDPA's efficient forward; the bf16 training forward and backward at
-     the train CLI's call and qwen3-0.6b's prefill shape, by events and
-     from a graph, in turns with SDPA's bf16 forward and backward);
+     the train CLI's call, qwen3-0.6b's prefill shape and train_4k's row
+     length (S = T = 4096), by events and from a graph, in turns with
+     SDPA's bf16 forward and backward, the backward's peak memory no more
+     than SDPA's);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -197,8 +199,9 @@ F32_FLOPS_S = 67e12
 # dims (bf16) and its training instance 2, WKV-6 2 dtypes, decay scan 2
 # (tiled, one thread a chain), flash's training instance (float32, with
 # the row log-sum-exp) 4 head dims, the flash backward 3 kernels (D, dK
-# and dV, dQ) x 4 head dims, the bf16 backward 3 kernels x 2 head dims
-N_KERNEL_INSTANCES = 9 + 1 + 10 + 3 + 2 + 2 + 2 + 4 + 12 + 6
+# and dV, dQ) x 4 head dims, the bf16 backward 2 kernels (D; dK, dV and
+# dQ) x 2 head dims
+N_KERNEL_INSTANCES = 9 + 1 + 10 + 3 + 2 + 2 + 2 + 4 + 12 + 4
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -259,19 +262,24 @@ ES_LOSS_TOL = 1e-5
 
 # the bf16 tensor-core backward's cases: (B, S, T, H, Kv, causal, window)
 # at head dims 64 and 128: GQA ratios 1, 2 and 8, causal and windowed, S
-# and T off its 64-row tiles, S != T both ways, rows that see no key (S 100
-# over T 40 with a window of 20), then the training step's call at the
-# train CLI's defaults (CLI_ATTN)
+# and T off its 64-row tiles and 128-row items, S != T both ways, rows
+# that see no key (S 100 over T 40 with a window of 20), more items (480)
+# than its persistent grid has blocks, then the training step's call at
+# the train CLI's defaults (CLI_ATTN)
 TC_BWD_CASES = [(2, 33, 33, 4, 4, True, 0), (1, 100, 100, 8, 4, True, 0),
                 (2, 70, 150, 8, 1, False, 0), (1, 150, 70, 4, 2, True, 0),
                 (2, 90, 90, 4, 4, True, 17), (1, 200, 200, 8, 1, True, 64),
                 (1, 129, 129, 2, 1, True, 0), (1, 257, 257, 16, 8, True, 0),
                 (3, 1, 1, 2, 1, True, 0), (1, 100, 40, 2, 1, True, 20),
-                (1, 65, 129, 16, 2, False, 33), (2, 64, 64, 4, 2, True, 0)]
+                (1, 65, 129, 16, 2, False, 33), (2, 64, 64, 4, 2, True, 0),
+                (2, 192, 320, 16, 2, False, 0), (1, 130, 250, 4, 1, True, 45),
+                (16, 300, 300, 8, 2, True, 0)]
 # qwen3-0.6b's attention call in a training step at the train CLI's
 # defaults (batch 32 of 256 tokens), and its prefill shape, in bf16
 CLI_ATTN = (32, 256, 16, 8, 128)
 QWEN_BF16_ATTN = (SERVE_BATCH, SERVE_PROMPT, 16, 8, 128)
+# and at train_4k's row length (repro/configs/base.py: 4,096 tokens), 4 rows
+TRAIN_4K_ATTN = (4, 4096, 16, 8, 128)
 # the bf16 backward against its twin (float32 math on the same bf16
 # inputs, cast to bf16): max |kernel - twin| <= TC_BWD_TOL max(1, max
 # |twin|) for each of dQ, dK, dV. The kernel rounds P and dS to bf16 for
@@ -351,7 +359,7 @@ def kernel_name(mangled: str) -> str:
     import re
     found = re.search(r"(sha256_rows_kernel|merkle_reduce_kernel|"
                       r"flash_fwd_kernel|flash_tc_kernel|wkv6_kernel|"
-                      r"tc_dq_kernel|tc_dkv_kernel|tc_dot_kernel|"
+                      r"tc_bwd_kernel|tc_dot_kernel|"
                       r"dq_kernel|dkv_kernel|dot_kernel|"
                       r"decay_scan_per_chain_kernel|decay_scan_kernel)",
                       mangled)
@@ -366,7 +374,8 @@ def kernel_name(mangled: str) -> str:
     if name == "flash_tc_kernel":
         name += f"<bf16,hd={hd[1]}" + (",lse>" if "Lb1E" in mangled else ">")
     elif name.startswith("tc_"):
-        name = f"flash_tc_bwd_{name[3:]}<bf16,hd={hd[1]}>"
+        part = "kernel" if name == "tc_bwd_kernel" else name[3:]
+        name = f"flash_tc_bwd_{part}<bf16,hd={hd[1]}>"
     elif name in ("dq_kernel", "dkv_kernel", "dot_kernel"):
         name = f"flash_bwd_{name}<f32,hd={hd[1]}>"
     elif name == "flash_fwd_kernel" and "Lb1E" in mangled:
@@ -450,7 +459,7 @@ def flash_tc_bwd_resources(ptxas: dict) -> dict:
                 check(res["local_bytes"] == 0,
                       f"bf16 backward {key} at hd {hd} spills nothing")
         out[f"hd={hd}"] = tile
-    check(len(out["ptxas"]) == 6, f"6 bf16 backward instances: "
+    check(len(out["ptxas"]) == 4, f"4 bf16 backward instances: "
                                   f"{out['ptxas']}")
     return out
 
@@ -2328,7 +2337,8 @@ def flash_tc_bwd_vs_plain(dev) -> dict:
 def flash_tc_bwd_times(dev) -> dict:
     """The bf16 training forward (the tensor-core kernel's instance that
     saves the log-sum-exp) and the bf16 backward at the training step's
-    call (``CLI_ATTN``) and at qwen3-0.6b's prefill shape, causal: by
+    call (``CLI_ATTN``), at qwen3-0.6b's prefill shape and at train_4k's
+    row length (``TRAIN_4K_ATTN``), causal: by
     events (10 calls in a row) in turns with SDPA on the same bf16 inputs
     (its default backend, K and V repeated to H heads, leaf tensors, so
     only the attention runs), and replayed from a CUDA graph (SDPA's
@@ -2346,7 +2356,8 @@ def flash_tc_bwd_times(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(20271)
     out = {}
     for name, (B, S, H, Kv, hd) in (("qwen3-0.6b train_cli", CLI_ATTN),
-                                    ("qwen3-0.6b prefill", QWEN_BF16_ATTN)):
+                                    ("qwen3-0.6b prefill", QWEN_BF16_ATTN),
+                                    ("qwen3-0.6b train_4k", TRAIN_4K_ATTN)):
         q, k, v = (torch.randn(shape, generator=gen, device=dev)
                    .to(torch.bfloat16) for shape in
                    ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
@@ -2371,8 +2382,12 @@ def flash_tc_bwd_times(dev) -> dict:
             with torch.no_grad():
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True)
+        kernel()   # the item list, made once a shape, is not a call's
         peak = {"kernel": peak_extra_bytes(kernel),
                 "sdpa": peak_extra_bytes(sdpa)}
+        check(peak["kernel"] <= peak["sdpa"],
+              f"the bf16 backward takes no more memory than SDPA's at {name}"
+              f" ({peak})")
         dq_sdpa = sdpa()[0].transpose(1, 2).float()
         dq = kernel()[0].float()
         sdpa_err = float((dq_sdpa - dq).abs().max())
@@ -2417,7 +2432,6 @@ def flash_tc_bwd_times(dev) -> dict:
                                 f"{t_bytes * 1e3:.4g}) ms",
             "share_of_bound": bound / ms["kernel"],
             "peak_bytes_over_inputs": peak,
-            "chunks": -(-B // ftb.rows_a_chunk(S, S, H)),
             "forward_training_instance_ms": fwd["training_instance"],
             "forward_training_instance_ms_from_graph": fwd_dev_ms,
             "forward_serving_instance_ms": fwd["serving_instance"],
@@ -3856,13 +3870,14 @@ def main() -> int:
         "flash_attention_tc_bwd.cu", "", cli["launches"][
             "flash_attention_tc_bwd"], tc_train,
         prefill_shape=tc_bwd_time["qwen3-0.6b prefill"],
+        train_4k_shape=tc_bwd_time["qwen3-0.6b train_4k"],
         device_ms_from_graph=tc_train["device_ms_from_graph"],
         tile={f"hd={hd}": flash_attention_tc_bwd.tile(hd)
               for hd in flash_attention_tc_bwd.HEAD_DIMS},
         launches_by_path={"train_cli": cli["launches"][
             "flash_attention_tc_bwd"]},
         path="training qwen3-0.6b in bf16 through the train CLI (one "
-             "launch a layer and step, three kernels each; the audit "
+             "launch a layer and step, two kernels each; the audit "
              "replay of the CLI's run); times at the CLI's call",
         replaces_note="no TPU kernel: the reference differentiates "
                       "chunked_attention (jax.grad)")

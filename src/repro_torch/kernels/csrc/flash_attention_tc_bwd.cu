@@ -18,154 +18,203 @@
 //   P = exp(q.k / sqrt(hd) - lse_s), D_s = dO_s . o_s (float32),
 //   dV_t += P dO_s,  dP = dO_s . v_t,  dS = P (dP - D_s),
 //   dQ_s += dS k_t / sqrt(hd),  dK_t += dS q_s / sqrt(hd).
+// P and dS are rounded to bf16 for the products that take them; every sum
+// is float32.
 //
 // What bounds it on an H100: at the training step's call (B 32, S = T 256,
-// 16 heads over 8, hd 128, causal) the five products are ~2.2e10 flops,
-// 0.022 ms at the 989 TFLOP/s of the bf16 tensor cores, against ~201 MB of
-// q, k, v, o, dO read and dq, dk, dv written, 0.060 ms at 3.35 TB/s: the
-// bytes. At qwen3-0.6b's prefill shape (B 8, S = T 2048) the products
-// bound it.
+// 16 heads over 8, hd 128, causal) the five products of the causal half are
+// ~2.2e10 flops, 0.022 ms at the 989 TFLOP/s of the bf16 tensor cores,
+// against ~201 MB of q, k, v, o, dO read and dq, dk, dv written, 0.060 ms
+// at 3.35 TB/s: the bytes. At qwen3-0.6b's prefill shape (B 8, S = T 2048)
+// the products bound it.
 //
-// The design, a simple one that is right first (a later change makes it
-// fast), three launches:
-// - tc_dot_kernel: D = rowsum(dO o) in float32 of every row (16 lanes a row, a
-//   fixed shuffle tree) into a workspace;
-// - tc_dkv_kernel: a block of 4 warps owns 64 keys of one (batch row, KV head);
-//   its K and V tiles stay in shared memory while it walks the query tiles
-//   (64 rows) that see one of its keys in ascending order, the group's heads
-//   inside. For each (query tile, head) pair, Q, dO, lse and D come by
-//   cp.async into shared memory (one barrier a pair); each warp owns 16 keys
-//   and, 32 queries at a time, runs S^T = K Q^T and dP^T = V dO^T as
-//   `mma.sync` m16n8k16 bf16 products with float32 accumulators (operands
-//   by `ldmatrix` from rows padded by 16 bytes, so no load has a bank
-//   conflict), P and dS in float32 registers, then dV += P^T dO and dK +=
-//   dS^T Q with P and dS rounded to bf16 as the A operand straight from the
-//   registers that held S and dP (the accumulator layout of two n-tiles is
-//   an A fragment), dO and Q by `ldmatrix.trans`. dS^T goes to a workspace,
-//   bf16 (B, H, T_pad, S_pad);
-// - tc_dq_kernel: a block owns 64 query rows of one (batch row, head) and
-//   walks the key tiles that see them in ascending order: dQ += dS K from
-//   the stored dS^T (`ldmatrix.trans` gives the A fragment) and K.
-// So S and dP are computed once (five products), and dS makes one round
-// trip through device memory instead of two more products. The wrapper
-// (kernels/flash_attention_tc_bwd.py) caps the dS^T workspace and goes
-// through the batch rows in chunks past it.
-// Every sum runs in a fixed order with no atomics (dK and dV over the query
-// tiles and the group's heads in the loop's order, dQ over key tiles in
-// ascending order), so two launches give the same bits and a miner and its
-// verifier agree. A (query tile, key tile) pair is computed iff some pair of
-// it is inside the mask's band (`visible`), the same rule in both passes,
-// so tc_dq_kernel reads only dS^T tiles tc_dkv_kernel wrote.
+// The design, two launches:
+// - tc_dot_kernel: D = rowsum(dO o) in float32 of every row (16 lanes a
+//   row, a fixed shuffle tree), and the row's log-sum-exp times log2(e),
+//   into two (B, H, S_pad) workspaces, S rounded up to an item's rows, so
+//   that the main kernel copies 64 or 128 rows of each with one aligned
+//   bulk copy;
+// - tc_bwd_kernel: one persistent launch (MIN_BLOCKS blocks an SM) over
+//   two kinds of item, each owned by one block: dK and dV of ITEM_ROWS keys
+//   of one (batch row, KV head), and dQ of ITEM_ROWS query rows of one
+//   (batch row, head). The wrapper (kernels/flash_attention_tc_bwd.py)
+//   lists the items heaviest first; a block takes its items from that list
+//   in rounds of gridDim.x, every other round reversed (a snake), so the
+//   blocks' shares even out. dQ recomputes S and dP instead of reading dS
+//   back from device memory: seven products of 64 x 64 x hd a visible
+//   tile pair instead of five, and no S x S workspace, so the items are
+//   independent and share one launch.
+// A block is NC consumer warpgroups, each owning 64 of the item's rows,
+// and one producer warpgroup, of which one thread issues every copy:
+// - the item's resident tiles (K and V of its keys, or Q and dO of its
+//   query rows, with their log-sum-exp and D) arrive by TMA through 4-D
+//   tensor maps (hd, heads, rows, batch) with boxes of (64 columns, 1 head,
+//   64 rows, 1) and the 128-byte swizzle, so GQA and MQA read the shared
+//   KV head in place. They are only ever the A operand of the S and dP
+//   products, so the next item's start to arrive as soon as both
+//   warpgroups' last S and dP products of this one are done, while the
+//   last stage's accumulating products and the stores still run (one
+//   buffer, RES_BUFS; a second would cost the ring a stage at hd 128);
+// - the streamed tiles (Q and dO with their log-sum-exp and D for each
+//   visible (query tile, head of the group) pair of a dK/dV item; K and V
+//   for each visible key tile of a dQ item; 64 rows each) run through a
+//   ring of STAGES stages on mbarriers. Rows past S or T arrive as zeros
+//   and are masked all the same;
+// - per stage a consumer warpgroup runs two products with both operands in
+//   shared memory as `wgmma` m64n64k16 (bf16, float32 accumulators):
+//   S^T = K Q^T and dP^T = V dO^T (dK/dV), or S = Q K^T and dP = dO V^T
+//   (dQ); forms P and dS in registers (the mask only on tiles across an
+//   edge of the band or past S or T); rounds them to bf16 pairs, which are
+//   wgmma's register A operand as they lie; and accumulates dV += P^T dO
+//   and dK += dS^T Q, or dQ += dS K, with the streamed tile as the
+//   transposed (MN-major) B operand. The two consumer warpgroups share the
+//   tensor cores, so one's products can run while the other forms P and
+//   dS.
+//   `setmaxnreg` gives the consumers CONSUMER_REGS registers a thread, so
+//   the 2 x 64 float32 accumulators of dK and dV at hd 128 stay in
+//   registers with no spills;
+// - deterministic, with no atomics: one warpgroup owns each row of dK, dV
+//   and dQ and sums it in a fixed order (dK and dV over query tiles, the
+//   group's heads inside; dQ over key tiles, ascending), so two launches
+//   give equal bits and a miner and its verifier agree. One rule,
+//   `visible`, picks the 64 x 64 tiles both kinds of item compute.
+// The tile (NC, STAGES, RES_BUFS, PRODUCER_REGS) is a constant here,
+// chosen by chip_probes.py's flash_tc_bwd_tiles sweep, which builds the
+// other tiles with -D flags: 128 keys or query rows an item, 3 stages, 1
+// resident buffer, 24 producer registers (240 for each consumer thread).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "flash_tc_common.cuh"
+
+#ifndef BWD_TC_CONSUMERS
+#define BWD_TC_CONSUMERS 2
+#endif
+#ifndef BWD_TC_STAGES
+#define BWD_TC_STAGES 3
+#endif
+#ifndef BWD_TC_RES_BUFS
+#define BWD_TC_RES_BUFS 1
+#endif
+#ifndef BWD_TC_PRODUCER_REGS
+#define BWD_TC_PRODUCER_REGS 24
+#endif
 
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BQ = 64;        // query rows a tile
-constexpr int BK = 64;        // keys a tile
-constexpr int WARPS = 4;      // a warp owns 16 keys (dkv) or 16 rows (dq)
-constexpr int THREADS = 32 * WARPS;
-constexpr int QH = 32;        // queries a dkv warp computes at a time
+constexpr int NC = BWD_TC_CONSUMERS;        // consumer warpgroups a block
+constexpr int STAGES = BWD_TC_STAGES;       // stages of the streamed ring
+constexpr int RES_BUFS = BWD_TC_RES_BUFS;   // buffers of the resident tiles
+constexpr int THREADS = 128 * (NC + 1);     // the last warpgroup produces
+constexpr int CONSUMER_WARPS = 4 * NC;
+constexpr int MIN_BLOCKS = NC == 1 ? 2 : 1;  // blocks an SM
+constexpr int ROWS = 64;                    // a warpgroup's rows; a streamed tile's
+constexpr int ITEM_ROWS = ROWS * NC;        // keys or query rows an item
+// the registers a block starts with (what __launch_bounds__ leaves each
+// thread, times its threads), and what `setmaxnreg` gives the consumers of
+// it once the producer has its PRODUCER_REGS
+constexpr int PRODUCER_REGS = BWD_TC_PRODUCER_REGS;
+constexpr int BLOCK_REGS = 65536 / (THREADS * MIN_BLOCKS) / 8 * 8 * THREADS;
+constexpr int CONSUMER_REGS =
+    std::min(248, (BLOCK_REGS - 128 * PRODUCER_REGS) / (128 * NC) / 8 * 8);
 
-// Row stride in bf16 of a shared tile of HD columns: 16 bytes of padding, so
-// the 8 rows an ldmatrix reads start in 8 different bank groups.
-template <int HD> __host__ __device__ constexpr int lds() { return HD + 8; }
+// Shared memory at head dim HD: RES_BUFS resident buffers (tiles A and B of
+// ITEM_ROWS rows), STAGES stages (tiles X and Y of 64 rows), each tile in
+// 64-column chunks of 128-byte rows; then the resident buffers' and the
+// stages' log-sum-exp and D (float32), then the barriers.
+template <int HD> struct Smem {
+    static constexpr uint32_t RES_TILE = ITEM_ROWS * HD * 2;
+    static constexpr uint32_t STAGE_TILE = ROWS * HD * 2;
+    static constexpr uint32_t RES = 2 * RES_TILE, STAGE = 2 * STAGE_TILE;
+    static constexpr uint32_t RES_VEC = 2 * ITEM_ROWS * 4, STAGE_VEC = 2 * ROWS * 4;
+    static constexpr uint32_t BYTES = RES_BUFS * (RES + RES_VEC) +
+                                      STAGES * (STAGE + STAGE_VEC) +
+                                      8 * 2 * (RES_BUFS + STAGES) + 1024;
+};
 
-template <int HD> __host__ __device__ constexpr int dkv_smem() {
-    return 4 * BK * lds<HD>() * 2 + 2 * BQ * 4;
-}
-template <int HD> __host__ __device__ constexpr int dq_smem() {
-    return BK * (BQ + 8) * 2 + BK * lds<HD>() * 2;
-}
+// One item of the schedule: x = 2 tile + kind (0: dK and dV of keys
+// [ITEM_ROWS tile, +ITEM_ROWS) of KV head h; 1: dQ of query rows [ITEM_ROWS
+// tile, +ITEM_ROWS) of head h), y = h | b << 16.
+struct Item {
+    int dq_item, t0, h, b;
+};
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-    const int bytes = valid ? 16 : 0;   // 0: zero-fill, nothing read
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
-                 "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + ROWS) of a (., heads, HD) bf16 tensor, row r at base + r *
-// stride elements, into dst[ROWS][lds<HD>()] by cp.async; rows at or past n
-// are zero. The caller commits the group.
-template <int HD, int ROWS>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* base,
-                                           size_t stride, int r0, int n) {
-    constexpr int CPR = HD / 8;   // 16-byte pieces a row
-    for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
-        const int r = c / CPR, col = (c % CPR) * 8;
-        const bool valid = r0 + r < n;
-        cp_async16(dst + r * lds<HD>() + col,
-                   valid ? base + (size_t)(r0 + r) * stride + col : base, valid);
-    }
+__device__ __forceinline__ Item read_item(const int2* __restrict__ sched, int w) {
+    const int2 e = __ldg(sched + w);
+    Item it;
+    it.dq_item = e.x & 1;
+    it.t0 = (e.x >> 1) * ITEM_ROWS;
+    it.h = e.y & 0xffff;
+    it.b = (int)((uint32_t)e.y >> 16);
+    return it;
 }
 
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. Plain: lane i gets row i / 4, columns 2 (i % 4)
-// and + 1 of each; transposed: rows 2 (i % 4) and + 1 of column i / 4.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-}
-
-// d (16 x 8, float32) += a (16 x 16, bf16, row-major fragment) b (16 x 8,
-// bf16, column-major fragment). Fragments (g = lane / 4, t = lane % 4): a
-// regs (row g, cols 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..);
-// b regs (rows 2t.., col g), (2t + 8.., g); d (row g, cols 2t, 2t + 1),
-// (g + 8, 2t, 2t + 1).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats to a bf16 pair, round to nearest even; `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    uint32_t r;
-    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-    return r;
-}
-
-// Whether the (query tile q0, key tile k0) pair holds a pair inside the
-// mask's band: the rule both passes use to choose their tiles.
-__device__ __forceinline__ bool visible(int q0, int k0, int S, int T, int causal,
-                                        int window) {
-    const int q_last = min(q0 + BQ, S) - 1, k_last = min(k0 + BK, T) - 1;
+// Whether query rows [q0, q0 + qn) and keys [k0, k0 + kn), clipped to S and
+// T, hold a pair inside the mask's band: the rule that picks the tiles of
+// both kinds of item (the pairs' q - k over a rectangle take every value
+// between its extremes, so the test is exact).
+__device__ __forceinline__ bool visible(int q0, int qn, int k0, int kn, int S, int T,
+                                        int causal, int window) {
+    if (q0 >= S || k0 >= T) return false;
+    const int q_last = min(q0 + qn, S) - 1, k_last = min(k0 + kn, T) - 1;
     return !(causal && k0 > q_last) && !(window > 0 && k_last <= q0 - window);
 }
 
-// The first launch: D = rowsum(dO o) of every row (a row's 16 lanes, a
-// fixed shuffle tree) into Dws (B, H, S).
+// Whether the 64 x 64 tile at (q0, k0) holds a pair outside the band or past
+// S or T: only such tiles evaluate the mask.
+__device__ __forceinline__ bool edge(int q0, int k0, int S, int T, int causal,
+                                     int window) {
+    const int q_hi = q0 + ROWS - 1, k_hi = k0 + ROWS - 1;
+    return q_hi >= S || k_hi >= T || (causal && k_hi > q0) ||
+           (window > 0 && k0 <= q_hi - window);
+}
+
+__device__ __forceinline__ bool keep(int qry, int key, int S, int T, int causal,
+                                     int window) {
+    return (qry < S) & (key < T) & (!causal | (key <= qry)) &
+           ((window <= 0) | (key > qry - window));
+}
+
+// d (64 x 64) = a (the warpgroup's 64 resident rows) b^T (64 streamed rows),
+// over hd; both K-major, chunks ITEM_ROWS and ROWS rows apart.
+template <int HD>
+__device__ __forceinline__ void ss_product(float (&d)[32], uint64_t a_desc,
+                                           uint32_t b_tile) {
+    const uint64_t b_desc = desc_sw128(b_tile, 16, 8 * ROW_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(d, a_desc + (((kk / 4) * ITEM_ROWS * ROW_BYTES + (kk % 4) * 32) >> 4),
+                 b_desc + (((kk / 4) * ROWS * ROW_BYTES + (kk % 4) * 32) >> 4), kk > 0);
+}
+
+// d (64 x hd) += a (64 x 64, bf16 pairs in registers, as an accumulator of
+// m64n64 lies) b (the 64 streamed rows x hd, MN-major: 8 rows 1024 bytes
+// apart, 64-column chunks ROWS rows apart).
+template <int HD>
+__device__ __forceinline__ void rs_product(float (&d)[HD / 2], const uint32_t (&a)[16],
+                                           uint32_t b_tile) {
+    const uint64_t b_desc = desc_sw128(b_tile, ROWS * ROW_BYTES, 8 * ROW_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+        wgmma_rs(d, f, b_desc + ((kk * 16 * ROW_BYTES) >> 4));
+    }
+}
+
+// D = rowsum(dO o) of every row (a row's 16 lanes, a fixed shuffle tree)
+// into Dws, and its log-sum-exp times log2(e) into Lws, both (B, H, S_pad).
 template <int HD>
 __global__ void __launch_bounds__(256)
 tc_dot_kernel(const __nv_bfloat16* __restrict__ o,
-           const __nv_bfloat16* __restrict__ dout, float* __restrict__ Dws,
-           int64_t n_rows, int S, int H) {
+              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+              float* __restrict__ Dws, float* __restrict__ Lws, int64_t n_rows, int S,
+              int H, int S_pad) {
     constexpr int PER = HD / 16;     // elements a lane: 4 or 8
     const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     const int tx = threadIdx.x & 15;
@@ -196,287 +245,381 @@ tc_dot_kernel(const __nv_bfloat16* __restrict__ o,
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
         part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (!live) return;
+    if (!live || tx != 0) return;
     const int h = (int)(r % H);
     const int64_t bs = r / H;
     const int s = (int)(bs % S);
-    const int64_t b = bs / S;
-    if (tx == 0) Dws[(b * H + h) * S + s] = part;
+    const int64_t bh = bs / S * H + h;
+    Dws[bh * S_pad + s] = part;
+    Lws[bh * S_pad + s] = lse[bh * S + s] * LOG2E;
 }
 
-// The key pass: dK and dV of one key tile, and each (query tile, head)
-// pair's dS^T into the workspace for tc_dq_kernel.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-tc_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v, const float* __restrict__ lse,
-           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ Dws,
-           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-           __nv_bfloat16* __restrict__ dsT, int S, int T, int H, int Kv,
-           int S_pad, int T_pad, int causal, int window, float scale_log2,
-           float scale) {
-    constexpr int LD = lds<HD>();
-    constexpr int NT = HD / 8;        // n-tiles of an accumulator row
-    extern __shared__ __align__(16) uint8_t smem[];
-    __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [BK][LD]
-    __nv_bfloat16* Vs = Ks + BK * LD;                              // [BK][LD]
-    __nv_bfloat16* Qs = Vs + BK * LD;                              // [BQ][LD]
-    __nv_bfloat16* Gs = Qs + BQ * LD;                              // [BQ][LD]: dO
-    float* Ls = reinterpret_cast<float*>(Gs + BQ * LD);            // [BQ]: lse log2 e
-    float* Dsh = Ls + BQ;                                          // [BQ]: D
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t4 = lane % 4;
-    const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-    const int k0 = kt * BK, kw = warp * 16;      // the warp's keys: k0 + kw ..
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+tc_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_do,
+              const float* __restrict__ Lws, const float* __restrict__ Dws,
+              const int2* __restrict__ sched, int n_items,
+              __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, int S, int T, int H, int Kv, int S_pad,
+              int causal, int window, float scale_log2, float scale) {
+    using SM = Smem<HD>;
+    constexpr int CHUNKS = HD / 64;
+    extern __shared__ uint8_t smem[];
+    const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+    const uint32_t s_res = base, s_stage = s_res + RES_BUFS * SM::RES;
+    const uint32_t v_res = s_stage + STAGES * SM::STAGE;   // floats: L then D
+    const uint32_t v_stage = v_res + RES_BUFS * SM::RES_VEC;
+    const uint32_t res_full = v_stage + STAGES * SM::STAGE_VEC,
+                   res_empty = res_full + 8 * RES_BUFS, st_full = res_empty + 8 * RES_BUFS,
+                   st_empty = st_full + 8 * STAGES;
     const int G = H / Kv;
-    const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)Kv * HD;
+    const int n_q64 = (S + ROWS - 1) / ROWS, n_k64 = (T + ROWS - 1) / ROWS;
+    // the block's j-th item: rounds of gridDim.x items, every other round
+    // in reverse (a snake)
+    auto next_item = [&](int j) {
+        return (int)(j * gridDim.x + (j & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x));
+    };
 
-    stage_rows<HD, BK>(Ks, k + ((size_t)b * T * Kv + kvh) * HD, kv_stride, k0, T);
-    stage_rows<HD, BK>(Vs, v + ((size_t)b * T * Kv + kvh) * HD, kv_stride, k0, T);
-    cp_async_commit();
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int r = 0; r < RES_BUFS; ++r) {
+            mbar_init(res_full + 8 * r, 1);
+            mbar_init(res_empty + 8 * r, CONSUMER_WARPS);
+        }
+#pragma unroll
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(st_full + 8 * s, 1);
+            mbar_init(st_empty + 8 * s, CONSUMER_WARPS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
 
-    float dk_acc[NT][4], dv_acc[NT][4];
+    // the warpgroup index, read from lane 0 so that the compiler sees it is
+    // the same across each warp: `setmaxnreg` then holds for each branch
+    const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+    if (wg == NC) {
+        // ---- producer: one thread issues every copy of the block ----------
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+        if (threadIdx.x == 128 * NC) {
+            // g counts the block's streamed stages over all its items: the
+            // ring's stage and phase run on across items
+            int g = 0, j = 0;
+            auto stage_in = [&]() {
+                const int stage = g % STAGES;
+                if (g >= STAGES) mbar_wait(st_empty + 8 * stage, (g / STAGES - 1) & 1);
+                ++g;
+                return stage;
+            };
+            for (int w = blockIdx.x; w < n_items; w = next_item(++j)) {
+                const Item it = read_item(sched, w);
+                const int r = j % RES_BUFS;
+                if (j >= RES_BUFS) mbar_wait(res_empty + 8 * r, (j / RES_BUFS - 1) & 1);
+                const uint32_t ra = s_res + r * SM::RES, rb = ra + SM::RES_TILE;
+                const uint32_t full = res_full + 8 * r;
+                if (!it.dq_item) {
+                    // K and V of the item's keys stay; Q, dO, L and D of each
+                    // visible (query tile, head) pair stream
+                    mbar_expect_tx(full, SM::RES);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+                    for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-    // ldmatrix row addresses: A (the warp's keys) and the plain B of the
-    // score products (rows of 8 queries), the transposed B of the
-    // accumulator products (rows of 8 queries by 8 columns)
-    const int a_row = kw + lane % 8 + 8 * ((lane / 8) & 1), a_col = 8 * (lane / 16);
-    const int b_row = lane % 8 + 8 * (lane / 16), b_col = 8 * ((lane / 8) & 1);
-    const int t_row = lane % 8 + 8 * ((lane / 8) & 1), t_col = 8 * (lane / 16);
-
-    const int n_qt = (S + BQ - 1) / BQ;
-    for (int qt = 0; qt < n_qt; ++qt) {
-        const int q0 = qt * BQ;
-        if (!visible(q0, k0, S, T, causal, window)) continue;
-        for (int hg = 0; hg < G; ++hg) {
-            const int h = kvh * G + hg;
-            __syncthreads();      // the last pair is done with Qs, Gs, Ls, Dsh
-            stage_rows<HD, BQ>(Qs, q + ((size_t)b * S * H + h) * HD, q_stride, q0, S);
-            stage_rows<HD, BQ>(Gs, dout + ((size_t)b * S * H + h) * HD, q_stride, q0,
-                               S);
-            cp_async_commit();
-            if (threadIdx.x < BQ) {
-                const int qp = q0 + threadIdx.x;
-                const size_t at = ((size_t)b * H + h) * S + qp;
-                Ls[threadIdx.x] = qp < S ? lse[at] * LOG2E : 0.f;
-                Dsh[threadIdx.x] = qp < S ? Dws[at] : 0.f;
-            }
-            cp_async_wait_all();
-            __syncthreads();
-
-            __nv_bfloat16* ds_bh = dsT + ((size_t)b * H + h) * T_pad * S_pad;
-#pragma unroll 1
-            for (int qh = 0; qh < BQ; qh += QH) {
-                // S^T = K Q^T and dP^T = V dO^T: 16 keys by QH queries
-                float s[QH / 8][4], dp[QH / 8][4];
-#pragma unroll
-                for (int n = 0; n < QH / 8; ++n)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-                for (int kk = 0; kk < HD / 16; ++kk) {
-                    uint32_t ka[4], va[4];
-                    ldsm_x4(ka, Ks + a_row * LD + kk * 16 + a_col);
-                    ldsm_x4(va, Vs + a_row * LD + kk * 16 + a_col);
-#pragma unroll
-                    for (int np = 0; np < QH / 16; ++np) {
-                        uint32_t qb[4], gb[4];
-                        const int off = (qh + np * 16 + b_row) * LD + kk * 16 + b_col;
-                        ldsm_x4(qb, Qs + off);
-                        ldsm_x4(gb, Gs + off);
-                        mma(s[2 * np], ka, qb[0], qb[1]);
-                        mma(s[2 * np + 1], ka, qb[2], qb[3]);
-                        mma(dp[2 * np], va, gb[0], gb[1]);
-                        mma(dp[2 * np + 1], va, gb[2], gb[3]);
-                    }
-                }
-                // P and dS in float32, masked by select (a row that sees no
-                // key has lse -1e30: its P is never computed)
-#pragma unroll
-                for (int n = 0; n < QH / 8; ++n)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int key = k0 + kw + g + 8 * (e / 2);
-                        const int ql = qh + n * 8 + 2 * t4 + (e & 1);
-                        const int qp = q0 + ql;
-                        const bool keep = qp < S && key < T && (!causal || key <= qp) &&
-                                          (window <= 0 || key > qp - window);
-                        const float p =
-                            keep ? exp2f(fmaf(s[n][e], scale_log2, -Ls[ql])) : 0.f;
-                        s[n][e] = p;
-                        dp[n][e] = p * (dp[n][e] - Dsh[ql]);
-                    }
-                // the A fragments of P^T and dS^T, 16 queries a fragment
-                uint32_t pa[QH / 16][4], da[QH / 16][4];
-#pragma unroll
-                for (int c = 0; c < QH / 16; ++c) {
-                    pa[c][0] = pack_bf16(s[2 * c][0], s[2 * c][1]);
-                    pa[c][1] = pack_bf16(s[2 * c][2], s[2 * c][3]);
-                    pa[c][2] = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
-                    pa[c][3] = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
-                    da[c][0] = pack_bf16(dp[2 * c][0], dp[2 * c][1]);
-                    da[c][1] = pack_bf16(dp[2 * c][2], dp[2 * c][3]);
-                    da[c][2] = pack_bf16(dp[2 * c + 1][0], dp[2 * c + 1][1]);
-                    da[c][3] = pack_bf16(dp[2 * c + 1][2], dp[2 * c + 1][3]);
-                }
-                // dS^T (keys by queries) to the workspace, the bf16 pairs
-                // the products below take
-#pragma unroll
-                for (int c = 0; c < QH / 16; ++c)
-#pragma unroll
-                    for (int half = 0; half < 2; ++half)
-#pragma unroll
-                        for (int r = 0; r < 2; ++r) {
-                            const int key = k0 + kw + g + 8 * r;
-                            const int col = q0 + qh + c * 16 + half * 8 + 2 * t4;
-                            *reinterpret_cast<uint32_t*>(ds_bh + (size_t)key * S_pad + col) =
-                                da[c][2 * half + r];
+                        for (int half = 0; half < NC; ++half) {
+                            const uint32_t at = c * ITEM_ROWS * ROW_BYTES + half * ROWS * ROW_BYTES;
+                            tma_load(ra + at, &tm_k, full, 64 * c, it.h, it.t0 + ROWS * half, it.b);
+                            tma_load(rb + at, &tm_v, full, 64 * c, it.h, it.t0 + ROWS * half, it.b);
                         }
-                // dV += P^T dO and dK += dS^T Q, 16 queries a step
+                    for (int qt = 0; qt < n_q64; ++qt) {
+                        if (!visible(qt * ROWS, ROWS, it.t0, ITEM_ROWS, S, T, causal, window))
+                            continue;
+                        for (int hg = 0; hg < G; ++hg) {
+                            const int h = it.h * G + hg, stage = stage_in();
+                            const uint32_t x = s_stage + stage * SM::STAGE, y = x + SM::STAGE_TILE;
+                            const uint32_t sf = st_full + 8 * stage;
+                            mbar_expect_tx(sf, SM::STAGE + SM::STAGE_VEC);
 #pragma unroll
-                for (int c = 0; c < QH / 16; ++c)
-#pragma unroll
-                    for (int np = 0; np < HD / 16; ++np) {
-                        uint32_t gb[4], qb[4];
-                        const int off = (qh + c * 16 + t_row) * LD + np * 16 + t_col;
-                        ldsm_x4_t(gb, Gs + off);
-                        ldsm_x4_t(qb, Qs + off);
-                        mma(dv_acc[2 * np], pa[c], gb[0], gb[1]);
-                        mma(dv_acc[2 * np + 1], pa[c], gb[2], gb[3]);
-                        mma(dk_acc[2 * np], da[c], qb[0], qb[1]);
-                        mma(dk_acc[2 * np + 1], da[c], qb[2], qb[3]);
+                            for (int c = 0; c < CHUNKS; ++c) {
+                                tma_load(x + c * ROWS * ROW_BYTES, &tm_q, sf, 64 * c, h, qt * ROWS, it.b);
+                                tma_load(y + c * ROWS * ROW_BYTES, &tm_do, sf, 64 * c, h, qt * ROWS, it.b);
+                            }
+                            const size_t at = ((size_t)it.b * H + h) * S_pad + qt * ROWS;
+                            const uint32_t vec = v_stage + stage * SM::STAGE_VEC;
+                            bulk_load(vec, Lws + at, ROWS * 4, sf);
+                            bulk_load(vec + ROWS * 4, Dws + at, ROWS * 4, sf);
+                        }
                     }
+                } else {
+                    // Q, dO, L and D of the item's rows stay; K and V of each
+                    // visible key tile stream
+                    mbar_expect_tx(full, SM::RES + SM::RES_VEC);
+#pragma unroll
+                    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+                        for (int half = 0; half < NC; ++half) {
+                            const uint32_t at = c * ITEM_ROWS * ROW_BYTES + half * ROWS * ROW_BYTES;
+                            tma_load(ra + at, &tm_q, full, 64 * c, it.h, it.t0 + ROWS * half, it.b);
+                            tma_load(rb + at, &tm_do, full, 64 * c, it.h, it.t0 + ROWS * half, it.b);
+                        }
+                    const size_t at = ((size_t)it.b * H + it.h) * S_pad + it.t0;
+                    const uint32_t vec = v_res + r * SM::RES_VEC;
+                    bulk_load(vec, Lws + at, ITEM_ROWS * 4, full);
+                    bulk_load(vec + ITEM_ROWS * 4, Dws + at, ITEM_ROWS * 4, full);
+                    const int kvh = it.h / G;
+                    for (int kt = 0; kt < n_k64; ++kt) {
+                        if (!visible(it.t0, ITEM_ROWS, kt * ROWS, ROWS, S, T, causal, window))
+                            continue;
+                        const int stage = stage_in();
+                        const uint32_t x = s_stage + stage * SM::STAGE, y = x + SM::STAGE_TILE;
+                        const uint32_t sf = st_full + 8 * stage;
+                        mbar_expect_tx(sf, SM::STAGE);
+#pragma unroll
+                        for (int c = 0; c < CHUNKS; ++c) {
+                            tma_load(x + c * ROWS * ROW_BYTES, &tm_k, sf, 64 * c, kvh, kt * ROWS, it.b);
+                            tma_load(y + c * ROWS * ROW_BYTES, &tm_v, sf, 64 * c, kvh, kt * ROWS, it.b);
+                        }
+                    }
+                }
             }
         }
-    }
-    cp_async_wait_all();   // no copy outlives the block (a tile that sees no query)
-
+    } else {
+        // ---- consumers: 64 of the item's rows each ----------------------
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+        const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+        // the accumulator layout of wgmma (m64nN, f32): element 4 j + 2 i + e
+        // of a thread is row `ra` + 8 i, column 8 j + `col` + e
+        const int ra = 16 * warp + lane / 4, col = 2 * (lane % 4);
+        const float* vecs = reinterpret_cast<const float*>(smem + (v_res - smem_u32(smem)));
+        auto release = [&](uint32_t bar) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar);
+        };
+        int g = 0, j = 0;
+        for (int w = blockIdx.x; w < n_items; w = next_item(++j)) {
+            const Item it = read_item(sched, w);
+            const int r = j % RES_BUFS;
+            // the warpgroup's 64 rows of the resident tiles, K-major
+            const uint32_t ra_tile = s_res + r * SM::RES + wg * ROWS * ROW_BYTES;
+            const uint64_t a_desc = desc_sw128(ra_tile, 16, 8 * ROW_BYTES);
+            const uint64_t b_desc = desc_sw128(ra_tile + SM::RES_TILE, 16, 8 * ROW_BYTES);
+            const int own0 = it.t0 + ROWS * wg;   // the warpgroup's first key or query row
+            mbar_wait(res_full + 8 * r, (j / RES_BUFS) & 1);
+            if (!it.dq_item) {
+                float acc_v[HD / 2], acc_k[HD / 2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int key = k0 + kw + g + 8 * r;
-        if (key >= T) continue;
-        const size_t at = ((size_t)b * T + key) * kv_stride + (size_t)kvh * HD + 2 * t4;
+                for (int i = 0; i < HD / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
+                // K and V are read by the S^T and dP^T products alone: the
+                // warpgroup frees them once its last pair's are done
+                int last = n_q64 - 1;
+                while (last >= 0 && !visible(last * ROWS, ROWS, own0, ROWS, S, T, causal, window))
+                    --last;
+                if (last < 0) release(res_empty + 8 * r);
+                for (int qt = 0; qt < n_q64; ++qt) {
+                    const int q0 = qt * ROWS;
+                    if (!visible(q0, ROWS, it.t0, ITEM_ROWS, S, T, causal, window)) continue;
+                    const bool mine = visible(q0, ROWS, own0, ROWS, S, T, causal, window);
+                    const bool masked = edge(q0, own0, S, T, causal, window);
+                    for (int hg = 0; hg < G; ++hg, ++g) {
+                        const int stage = g % STAGES;
+                        mbar_wait(st_full + 8 * stage, (g / STAGES) & 1);
+                        if (!mine) {
+                            release(st_empty + 8 * stage);
+                            continue;
+                        }
+                        const uint32_t x = s_stage + stage * SM::STAGE, y = x + SM::STAGE_TILE;
+                        const float* lv = vecs + (RES_BUFS * SM::RES_VEC + stage * SM::STAGE_VEC) / 4;
+                        const float* dd = lv + ROWS;
+                        // S^T = K Q^T and dP^T = V dO^T: rows are the
+                        // warpgroup's keys, columns the tile's queries
+                        float s[32], dp[32];
+                        wgmma_fence();
+                        ss_product<HD>(s, a_desc, x);
+                        ss_product<HD>(dp, b_desc, y);
+                        wgmma_commit();
+                        wgmma_wait<0>();
+                        fence_regs(s);
+                        fence_regs(dp);
+                        if (qt == last && hg == G - 1) release(res_empty + 8 * r);
+                        // P^T
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            *reinterpret_cast<uint32_t*>(dk + at + n * 8) =
-                pack_bf16(dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
-            *reinterpret_cast<uint32_t*>(dv + at + n * 8) =
-                pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
-        }
-    }
-}
-
-// The dQ pass: dQ = dS K / sqrt(hd) from the dS^T tiles tc_dkv_kernel stored.
-// A block owns 64 query rows of one (batch row, head), a warp 16 of them,
-// and walks the key tiles that see them in ascending order; each tile's dS^T
-// (64 keys x 64 queries) and K come by cp.async into shared memory.
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-tc_dq_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ dsT,
-          __nv_bfloat16* __restrict__ dq, int S, int T, int H, int Kv, int S_pad,
-          int T_pad, int causal, int window, float scale) {
-    constexpr int LD = lds<HD>(), SS = BQ + 8;
-    constexpr int NT = HD / 8;
-    extern __shared__ __align__(16) uint8_t smem[];
-    __nv_bfloat16* DSs = reinterpret_cast<__nv_bfloat16*>(smem);   // [BK][SS]
-    __nv_bfloat16* Ks = DSs + BK * SS;                              // [BK][LD]
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t4 = lane % 4;
-    const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int q0 = qt * BQ, qw = warp * 16;     // the warp's rows: q0 + qw ..
-    const int kvh = h / (H / Kv);
-    const size_t kv_stride = (size_t)Kv * HD;
-    const __nv_bfloat16* kb = k + ((size_t)b * T * Kv + kvh) * HD;
-    const __nv_bfloat16* ds_bh = dsT + ((size_t)b * H + h) * T_pad * S_pad;
-
-    float acc[NT][4];
+                        for (int jj = 0; jj < 8; ++jj) {
+                            const float2 l2 = *reinterpret_cast<const float2*>(lv + 8 * jj + col);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+                            for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-    // ldmatrix.trans row addresses: dS^T as the A operand (rows of 8 keys
-    // by 8 queries), K as the B operand (rows of 8 keys by 8 columns)
-    const int a_row = lane % 8 + 8 * (lane / 16), a_col = qw + 8 * ((lane / 8) & 1);
-    const int t_row = lane % 8 + 8 * ((lane / 8) & 1), t_col = 8 * (lane / 16);
-
-    const int n_kt = (T + BK - 1) / BK;
-    for (int kt = 0; kt < n_kt; ++kt) {
-        const int k0 = kt * BK;
-        if (!visible(q0, k0, S, T, causal, window)) continue;
-        __syncthreads();          // the last tile is done with DSs and Ks
-        for (int c = threadIdx.x; c < BK * (BQ / 8); c += THREADS) {
-            const int r = c / (BQ / 8), col = (c % (BQ / 8)) * 8;
-            cp_async16(DSs + r * SS + col, ds_bh + (size_t)(k0 + r) * S_pad + q0 + col,
-                       true);
-        }
-        stage_rows<HD, BK>(Ks, kb, kv_stride, k0, T);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
+                                for (int e = 0; e < 2; ++e) {
+                                    const int at = 4 * jj + 2 * i + e;
+                                    const float p = ex2(fmaf(s[at], scale_log2, -(e ? l2.y : l2.x)));
+                                    s[at] = masked & !keep(q0 + 8 * jj + col + e, own0 + ra + 8 * i,
+                                                           S, T, causal, window) ? 0.f : p;
+                                }
+                        }
+                        uint32_t pa[16], da[16];
 #pragma unroll
-        for (int kc = 0; kc < BK / 16; ++kc) {
-            uint32_t a[4];
-            ldsm_x4_t(a, DSs + (kc * 16 + a_row) * SS + a_col);
+                        for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+                        // dS^T = P^T (dP^T - D)
 #pragma unroll
-            for (int np = 0; np < HD / 16; ++np) {
-                uint32_t kf[4];
-                ldsm_x4_t(kf, Ks + (kc * 16 + t_row) * LD + np * 16 + t_col);
-                mma(acc[2 * np], a, kf[0], kf[1]);
-                mma(acc[2 * np + 1], a, kf[2], kf[3]);
+                        for (int jj = 0; jj < 8; ++jj) {
+                            const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * jj + col);
+#pragma unroll
+                            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                                for (int e = 0; e < 2; ++e) {
+                                    const int at = 4 * jj + 2 * i + e;
+                                    // a masked P is 0, and so is its dS (D
+                                    // past S is not a number)
+                                    dp[at] = s[at] == 0.f ? 0.f : s[at] * (dp[at] - (e ? d2.y : d2.x));
+                                }
+                        }
+#pragma unroll
+                        for (int i = 0; i < 16; ++i) da[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+                        // dV += P^T dO and dK += dS^T Q
+                        wgmma_fence();
+                        rs_product<HD>(acc_v, pa, y);
+                        rs_product<HD>(acc_k, da, x);
+                        wgmma_commit();
+                        wgmma_wait<0>();
+                        fence_regs(pa);
+                        fence_regs(da);
+                        fence_regs(acc_v);
+                        fence_regs(acc_k);
+                        release(st_empty + 8 * stage);
+                    }
+                }
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const int key = own0 + ra + 8 * i;
+                    if (key >= T) continue;
+                    const size_t at = (((size_t)it.b * T + key) * Kv + it.h) * HD + col;
+#pragma unroll
+                    for (int c = 0; c < HD / 8; ++c) {
+                        *reinterpret_cast<uint32_t*>(dk + at + 8 * c) = pack_bf16(
+                            acc_k[4 * c + 2 * i] * scale, acc_k[4 * c + 2 * i + 1] * scale);
+                        *reinterpret_cast<uint32_t*>(dv + at + 8 * c) =
+                            pack_bf16(acc_v[4 * c + 2 * i], acc_v[4 * c + 2 * i + 1]);
+                    }
+                }
+            } else {
+                float acc_q[HD / 2];
+#pragma unroll
+                for (int i = 0; i < HD / 2; ++i) acc_q[i] = 0.f;
+                const float* lv = vecs + (r * SM::RES_VEC) / 4 + ROWS * wg;
+                const float lrow[2] = {lv[ra], lv[ra + 8]};
+                const float drow[2] = {lv[ITEM_ROWS + ra], lv[ITEM_ROWS + ra + 8]};
+                // Q and dO are read by the S and dP products alone
+                int last = n_k64 - 1;
+                while (last >= 0 && !visible(own0, ROWS, last * ROWS, ROWS, S, T, causal, window))
+                    --last;
+                if (last < 0) release(res_empty + 8 * r);
+                for (int kt = 0; kt < n_k64; ++kt) {
+                    const int k0 = kt * ROWS;
+                    if (!visible(it.t0, ITEM_ROWS, k0, ROWS, S, T, causal, window)) continue;
+                    const int stage = g % STAGES;
+                    mbar_wait(st_full + 8 * stage, (g / STAGES) & 1);
+                    ++g;
+                    if (!visible(own0, ROWS, k0, ROWS, S, T, causal, window)) {
+                        release(st_empty + 8 * stage);
+                        continue;
+                    }
+                    const uint32_t x = s_stage + stage * SM::STAGE, y = x + SM::STAGE_TILE;
+                    const bool masked = edge(own0, k0, S, T, causal, window);
+                    // S = Q K^T and dP = dO V^T: rows are the warpgroup's
+                    // queries, columns the tile's keys
+                    float s[32], dp[32];
+                    wgmma_fence();
+                    ss_product<HD>(s, a_desc, x);
+                    ss_product<HD>(dp, b_desc, y);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(s);
+                    fence_regs(dp);
+                    if (kt == last) release(res_empty + 8 * r);
+                    // P
+#pragma unroll
+                    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+                        for (int i = 0; i < 2; ++i)
+#pragma unroll
+                            for (int e = 0; e < 2; ++e) {
+                                const int at = 4 * jj + 2 * i + e;
+                                const float p = ex2(fmaf(s[at], scale_log2, -lrow[i]));
+                                s[at] = masked & !keep(own0 + ra + 8 * i, k0 + 8 * jj + col + e,
+                                                       S, T, causal, window) ? 0.f : p;
+                            }
+                    // dS = P (dP - D); then dQ += dS K
+                    uint32_t da[16];
+#pragma unroll
+                    for (int i = 0; i < 16; ++i) {
+                        const int i0 = 2 * i, i1 = 2 * i + 1;   // row ra + 8 (i % 2)
+                        da[i] = pack_bf16(
+                            s[i0] == 0.f ? 0.f : s[i0] * (dp[i0] - drow[i % 2]),
+                            s[i1] == 0.f ? 0.f : s[i1] * (dp[i1] - drow[i % 2]));
+                    }
+                    wgmma_fence();
+                    rs_product<HD>(acc_q, da, x);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(da);
+                    fence_regs(acc_q);
+                    release(st_empty + 8 * stage);
+                }
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const int row = own0 + ra + 8 * i;
+                    if (row >= S) continue;
+                    const size_t at = (((size_t)it.b * S + row) * H + it.h) * HD + col;
+#pragma unroll
+                    for (int c = 0; c < HD / 8; ++c)
+                        *reinterpret_cast<uint32_t*>(dq + at + 8 * c) = pack_bf16(
+                            acc_q[4 * c + 2 * i] * scale, acc_q[4 * c + 2 * i + 1] * scale);
+                }
             }
         }
-    }
-
-    const size_t q_stride = (size_t)H * HD;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int qp = q0 + qw + g + 8 * r;
-        if (qp >= S) continue;
-        __nv_bfloat16* dst = dq + ((size_t)b * S + qp) * q_stride + (size_t)h * HD + 2 * t4;
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-            *reinterpret_cast<uint32_t*>(dst + n * 8) =
-                pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
     }
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, void* dq, void* dk, void* dv,
-           float* Dws, void* dsT, int64_t B, int64_t S, int64_t T, int H, int Kv,
-           int causal, int window, cudaStream_t stream) {
+           float* Dws, float* Lws, const int2* sched, int n_items, int64_t B,
+           int64_t S, int64_t T, int H, int Kv, int causal, int window,
+           cudaStream_t stream) {
     using bf = __nv_bfloat16;
-    const float scale = 1.f / sqrtf((float)HD);
-    cudaError_t err = cudaFuncSetAttribute(
-        tc_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem<HD>());
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return (int)cudaErrorNotSupported;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, tc_bwd_kernel<HD>);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(tc_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dq_smem<HD>());
+    // setmaxnreg only moves registers between the block's warpgroups: the
+    // block must start with all that the consumers and the producer take
+    if (attr.numRegs * THREADS < 128 * (NC * CONSUMER_REGS + PRODUCER_REGS))
+        return (int)cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(tc_bwd_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<HD>::BYTES);
     if (err != cudaSuccess) return (int)err;
+    alignas(64) CUtensorMap mq, mk, mv, mdo;
+    if (!encode(fn, &mq, q, B, S, H, HD, ROWS) || !encode(fn, &mk, k, B, T, Kv, HD, ROWS) ||
+        !encode(fn, &mv, v, B, T, Kv, HD, ROWS) || !encode(fn, &mdo, dout, B, S, H, HD, ROWS))
+        return (int)cudaErrorInvalidValue;
+    int device, sms;
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const int S_pad = (int)((S + ITEM_ROWS - 1) / ITEM_ROWS * ITEM_ROWS);
     const int64_t n_rows = B * S * H;
-    const int S_pad = (int)((S + BQ - 1) / BQ * BQ), T_pad = (int)((T + BK - 1) / BK * BK);
     tc_dot_kernel<HD><<<(unsigned int)((n_rows * 16 + 255) / 256), 256, 0, stream>>>(
-        (const bf*)o, (const bf*)dout, Dws, n_rows, (int)S, H);
+        (const bf*)o, (const bf*)dout, lse, Dws, Lws, n_rows, (int)S, H, S_pad);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const dim3 gk((unsigned int)(T_pad / BK), (unsigned int)Kv, (unsigned int)B);
-    tc_dkv_kernel<HD><<<gk, THREADS, dkv_smem<HD>(), stream>>>(
-        (const bf*)q, (const bf*)k, (const bf*)v, lse, (const bf*)dout, Dws, (bf*)dk,
-        (bf*)dv, (bf*)dsT, (int)S, (int)T, H, Kv, S_pad, T_pad, causal, window,
-        LOG2E * scale, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const dim3 gq((unsigned int)(S_pad / BQ), (unsigned int)H, (unsigned int)B);
-    tc_dq_kernel<HD><<<gq, THREADS, dq_smem<HD>(), stream>>>(
-        (const bf*)k, (const bf*)dsT, (bf*)dq, (int)S, (int)T, H, Kv, S_pad, T_pad,
-        causal, window, scale);
+    const float scale = 1.f / sqrtf((float)HD);
+    tc_bwd_kernel<HD><<<(unsigned int)std::min(n_items, sms * MIN_BLOCKS), THREADS,
+                        Smem<HD>::BYTES, stream>>>(
+        mq, mk, mv, mdo, Lws, Dws, sched, n_items, (bf*)dq, (bf*)dk, (bf*)dv, (int)S,
+        (int)T, H, Kv, S_pad, causal, window, LOG2E * scale, scale);
     return (int)cudaGetLastError();
 }
 
@@ -491,20 +634,23 @@ int resources(F kernel, int32_t* out) {
 
 template <int HD>
 int info(int32_t* out) {
-    out[0] = BQ;
-    out[1] = BK;
-    out[2] = dkv_smem<HD>();
-    out[3] = dq_smem<HD>();
-    return resources(tc_dot_kernel<HD>, out + 4) | resources(tc_dkv_kernel<HD>, out + 6) |
-           resources(tc_dq_kernel<HD>, out + 8);
+    out[0] = ITEM_ROWS;
+    out[1] = STAGES;
+    out[2] = RES_BUFS;
+    out[3] = Smem<HD>::BYTES;
+    out[4] = CONSUMER_REGS;
+    out[5] = PRODUCER_REGS;
+    out[6] = MIN_BLOCKS;
+    return resources(tc_dot_kernel<HD>, out + 7) | resources(tc_bwd_kernel<HD>, out + 9);
 }
 
 }  // namespace
 
-// The tiles at head dim `hd`, as 10 ints: query rows and keys a tile, the
-// dynamic shared bytes of tc_dkv_kernel and tc_dq_kernel, then the registers a
-// thread and local (spilled) bytes the runtime reports for tc_dot_kernel,
-// tc_dkv_kernel and tc_dq_kernel.
+// The tile at head dim `hd`, as 11 ints: rows an item (keys of a dK/dV
+// item, query rows of a dQ item), stages of the streamed ring, resident
+// buffers, dynamic shared bytes, `setmaxnreg`'s consumer and producer
+// registers, blocks an SM; then the registers a thread and local (spilled)
+// bytes the runtime reports for tc_dot_kernel and tc_bwd_kernel.
 extern "C" int pnp_flash_attention_tc_bwd_info(int32_t hd, int32_t* out) {
     switch (hd) {
         case 64: return info<64>(out);
@@ -515,27 +661,33 @@ extern "C" int pnp_flash_attention_tc_bwd_info(int32_t hd, int32_t* out) {
 
 // q, o, dout, dq: (B, S, H, hd); k, v, dk, dv: (B, T, Kv, hd); bfloat16,
 // contiguous, 16-byte aligned; lse: (B, H, S) float32; hd in {64, 128};
-// H % Kv == 0; window 0 for none. Workspaces (the kernels fill them): Dws
-// float32 (B, H, S); dsT bf16 (B, H, T_pad, S_pad), T and S rounded up to 64.
-// Launches tc_dot_kernel, tc_dkv_kernel and tc_dq_kernel on `stream`; returns
-// cudaGetLastError() (or the error that kept a kernel from launching).
+// H % Kv == 0; window 0 for none. Workspaces (tc_dot_kernel fills them): Dws
+// and Lws float32 (B, H, S_pad), S rounded up to an item's rows, 16-byte
+// aligned. sched: the n_items items (int2, see Item), each (kind, tile,
+// head, batch row) once. Launches tc_dot_kernel and tc_bwd_kernel on
+// `stream`; returns cudaGetLastError() (or the error that kept a kernel
+// from launching).
 extern "C" int pnp_flash_attention_tc_bwd(const void* q, const void* k, const void* v,
                                           const void* o, const void* lse,
                                           const void* dout, void* dq, void* dk,
-                                          void* dv, void* Dws, void* dsT, int64_t B,
+                                          void* dv, void* Dws, void* Lws,
+                                          const void* sched, int64_t n_items, int64_t B,
                                           int64_t S, int64_t T, int32_t H, int32_t Kv,
                                           int32_t hd, int32_t causal, int32_t window,
                                           void* stream) {
     if (B < 0 || S < 0 || T < 1 || H < 1 || Kv < 1 || H % Kv || window < 0 ||
-        S > INT32_MAX - BQ || T > INT32_MAX - BK || B > 65535 || H > 65535)
+        S > INT32_MAX - ITEM_ROWS || T > INT32_MAX - ITEM_ROWS || B > 65535 ||
+        H > 65535 || n_items < 0 || n_items > INT32_MAX)
         return (int)cudaErrorInvalidValue;
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
-         (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)dsT) % 16)
+         (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)Dws | (uintptr_t)Lws |
+         (uintptr_t)sched) % 16)
         return (int)cudaErrorMisalignedAddress;
     if (B == 0 || S == 0) return 0;
+    if (n_items == 0) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
 #define PNP_TC_BWD_ARGS q, k, v, o, (const float*)lse, dout, dq, dk, dv, (float*)Dws, \
-        dsT, B, S, T, H, Kv, causal, window, st
+        (float*)Lws, (const int2*)sched, (int)n_items, B, S, T, H, Kv, causal, window, st
     switch (hd) {
         case 64: return launch<64>(PNP_TC_BWD_ARGS);
         case 128: return launch<128>(PNP_TC_BWD_ARGS);

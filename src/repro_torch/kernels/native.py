@@ -137,8 +137,9 @@ def library() -> ctypes.CDLL:
     lib.pnp_flash_attention_tc_info.argtypes = [i32, i32, vp, vp, vp]
     lib.pnp_flash_attention_tc_info.restype = ctypes.c_int
     lib.pnp_flash_attention_tc_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               vp, vp, vp, vp, i64, i64, i64,
-                                               i32, i32, i32, i32, i32, vp]
+                                               vp, vp, vp, vp, vp, i64, i64,
+                                               i64, i64, i32, i32, i32, i32,
+                                               i32, vp]
     lib.pnp_flash_attention_tc_bwd.restype = ctypes.c_int
     lib.pnp_flash_attention_tc_bwd_info.argtypes = [i32, vp]
     lib.pnp_flash_attention_tc_bwd_info.restype = ctypes.c_int

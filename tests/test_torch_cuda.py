@@ -784,11 +784,15 @@ def test_flash_backward_raises_for_what_it_cannot_take(card):
             ops.flash_attention(y.requires_grad_(True), y, y, causal=True)
 
 
-# the bf16 tensor-core backward's cases: (B, S, T, H, Kv, causal, window)
+# the bf16 tensor-core backward's cases: (B, S, T, H, Kv, causal, window);
+# the last three: S and T off its 128-row items with GQA 8, both off them
+# with a window, and more items (480) than the persistent grid has blocks
 _TC_BWD_CASES = [(2, 33, 33, 4, 4, True, 0), (1, 100, 100, 8, 4, True, 0),
                  (2, 70, 150, 8, 1, False, 0), (1, 150, 70, 4, 2, True, 0),
                  (2, 90, 90, 4, 4, True, 17), (1, 129, 129, 16, 2, True, 0),
-                 (1, 100, 40, 2, 1, True, 20), (3, 1, 1, 2, 1, True, 0)]
+                 (1, 100, 40, 2, 1, True, 20), (3, 1, 1, 2, 1, True, 0),
+                 (2, 192, 320, 16, 2, False, 0), (1, 130, 250, 4, 1, True, 45),
+                 (16, 300, 300, 8, 2, True, 0)]
 # |kernel - twin as bf16| <= TC_BWD_TOL max(1, max |twin|): the kernel
 # rounds P and dS to bf16 for its products and its results to bf16
 TC_BWD_TOL = 2e-2
@@ -824,25 +828,63 @@ def test_flash_tc_backward_kernel_matches_its_twin(card, hd, case):
             TC_BWD_TOL * scale
 
 
-def test_flash_tc_backward_in_chunks_of_batch_rows(card, monkeypatch):
-    """A cap on the dS^T workspace of one batch row: the rows go one a
-    launch, bit-equal to one launch for all."""
-    from repro_torch.kernels import flash_attention_tc, flash_attention_tc_bwd
-    gen = torch.Generator(device=card).manual_seed(5)
+def _tc_bwd_inputs(card, seed, B, S, H, Kv, hd=128):
+    from repro_torch.kernels import flash_attention_tc
+    gen = torch.Generator(device=card).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=gen, device=card).bfloat16()
-               for shape in ((3, 130, 4, 128), (3, 130, 2, 128),
-                             (3, 130, 2, 128)))
+               for shape in ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
     o, lse = flash_attention_tc.flash_attention_tc_lse_cuda(q, k, v,
                                                             causal=True)
     do = torch.randn(o.shape, generator=gen, device=card).bfloat16()
-    whole = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
-        q, k, v, o, lse, do, causal=True)
-    monkeypatch.setattr(flash_attention_tc_bwd, "DS_CAP_BYTES",
-                        4 * 192 * 192 * 2)
-    assert flash_attention_tc_bwd.rows_a_chunk(130, 130, 4) == 1
-    rows = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
-        q, k, v, o, lse, do, causal=True)
-    assert all(torch.equal(a, b) for a, b in zip(whole, rows))
+    return q, k, v, o, lse, do
+
+
+# what a call may allocate past dQ, dK, dV and its D and log-sum-exp
+# workspaces: the allocator's rounding and the item list (made once a shape)
+TC_BWD_MEMORY_MARGIN = 1 << 20
+
+
+def test_flash_tc_backward_takes_no_s_by_s_workspace(card):
+    """At S = T = 1024 a bf16 dS of every (query, key) pair would take 64
+    MiB: the call's peak device memory over its inputs stays within its
+    outputs and its (B, H, S) workspaces plus a margin."""
+    from repro_torch.kernels import flash_attention_tc_bwd
+    B, S, H, Kv = 2, 1024, 16, 8
+    args = _tc_bwd_inputs(card, 6, B, S, H, Kv)
+    flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(*args, causal=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(*args,
+                                                             causal=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outputs = sum(t.numel() * t.element_size() for t in got)
+    rows = flash_attention_tc_bwd.tile(128)["item_rows"]
+    workspaces = 2 * B * H * (-(-S // rows) * rows) * 4
+    assert peak <= outputs + workspaces + TC_BWD_MEMORY_MARGIN
+    # such a dS alone would be past that limit
+    assert B * H * S * S * 2 > outputs + workspaces + TC_BWD_MEMORY_MARGIN
+
+
+def test_flash_tc_backward_wrapping_its_grid_equals_rows_one_at_a_time(card):
+    """24 batch rows make 720 items, more than the persistent grid has
+    blocks, so each block's loop wraps; each row run alone (30 items)
+    gives the same bits."""
+    from repro_torch.kernels import flash_attention_tc_bwd
+    B, S, H, Kv = 24, 300, 8, 2
+    args = _tc_bwd_inputs(card, 7, B, S, H, Kv)
+    rows = flash_attention_tc_bwd.tile(128)["item_rows"]
+    n_items = flash_attention_tc_bwd.schedule(B, S, S, H, Kv, True, 0,
+                                              rows).shape[0]
+    assert n_items > 2 * torch.cuda.get_device_properties(
+        card).multi_processor_count
+    whole = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(*args,
+                                                               causal=True)
+    for b in range(B):
+        one = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
+            *(t[b:b + 1].contiguous() for t in args), causal=True)
+        assert all(torch.equal(w[b:b + 1], o) for w, o in zip(whole, one))
 
 
 def test_ops_flash_attention_carries_bf16_gradient_through_tc_kernels(card):
