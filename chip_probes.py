@@ -72,6 +72,16 @@ Prints one JSON line per probe, each with the card's name and power limit
      session starts and stopping as soon as the card has synchronised,
      and 200 with quiet time at both ends, in turns (the count of
      ``tests/test_torch_cuda.py::test_sha256_call_is_one_kernel``).
+ 16. flash_tc_head_shapes: the bf16 tensor-core forward at head shapes no
+     served path gives it, each in turns with SDPA, with its bound:
+     stablelm-3b's prefill heads (B 8, S = T 2048, 32 over 32, causal) at
+     hd 80, its own, and at hd 128, to show what hd 80's zero-padded
+     columns cost; and arctic-480b's heads (56 over 8, G = 7, hd 128) at
+     the same prefill, which no card holds at full width;
+ 17. remat_step: a qwen3-0.6b training step at the train CLI's batch (32 x
+     256, bf16) split by CUDA events into forward, backward and optimiser,
+     with its peak device memory, with ``remat`` (the config's) and
+     without, in turns (on, off, off, on).
 The tile, unit and block sweeps build their variants of the port's sources
 with -D flags into their own libraries; the port's library keeps its one
 tile, unit and block.
@@ -501,6 +511,10 @@ def main() -> int:
         probe_merkle_host(gpu)
     if want("profiler_count"):
         probe_profiler_count(gpu)
+    if want("flash_tc_head_shapes"):
+        probe_flash_tc_head_shapes(gpu)
+    if want("remat_step"):
+        probe_remat_step(gpu)
     return 0
 
 
@@ -509,7 +523,57 @@ PROBES = ("shared_loads", "fp32_issue", "wkv6_step_loop", "wkv6_per_step",
           "sha256_blocks", "flash_tiles", "flash_bwd_tiles",
           "flash_bwd_memory", "flash_tc_bwd_tiles", "merkle_units",
           "merkle_host",
-          "profiler_count")
+          "profiler_count", "flash_tc_head_shapes", "remat_step")
+
+
+def probe_flash_tc_head_shapes(gpu: str) -> None:
+    """The tensor-core forward at head shapes no served path runs, timed
+    as chip_smoke.py times the served ones (``_flash_timing``)."""
+    import torch
+    from chip_smoke import SERVE_BATCH, SERVE_PROMPT, _flash_timing
+    gen = torch.Generator(device="cuda").manual_seed(20264)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    for name, (H, Kv, hd) in (("stablelm-3b heads at hd 80", (32, 32, 80)),
+                              ("stablelm-3b heads at hd 128", (32, 32, 128)),
+                              ("arctic-480b heads", (56, 8, 128))):
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        emit({"probe": "flash_tc_head_shapes", "gpu": gpu, "case": name,
+              "shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal",
+              **_flash_timing(q, k, v, sdpa, S * (S + 1) // 2, causal=True)})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def probe_remat_step(gpu: str) -> None:
+    """qwen3-0.6b's training step at the train CLI's batch, from its
+    threefry init, with ``remat`` and without, in turns, by chip_smoke.py's
+    ``step_split``."""
+    import dataclasses
+    from chip_smoke import step_split
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train.steps import TrainHparams, make_train_state
+    cfg = get_config("qwen3-0.6b")
+    state = make_train_state(cfg, random.key(0), "cuda")
+    batch = SyntheticTokenPipeline(cfg, InputShape("cli", 256, 32,
+                                                   "train")).batch(0)
+    hp = TrainHparams(peak_lr=3e-4, warmup_steps=5, total_steps=8)
+    splits = {True: [], False: []}
+    for remat in (True, False, False, True):
+        splits[remat].append(step_split(
+            dataclasses.replace(cfg, remat=remat), state, batch, hp, reps=3))
+    emit({"probe": "remat_step", "gpu": gpu, "arch": cfg.name,
+          "batch": "32 x 256 bf16", "config_remat": cfg.remat,
+          "remat_on": splits[True], "remat_off": splits[False]})
 
 
 def probe_profiler_count(gpu: str) -> None:

@@ -13,6 +13,7 @@ On one CUDA card it:
      widths, a forest of 4 trees, every level kept, one launch a
      reduction, and a proof against core.ledger's), both flash
      attention kernels (the tensor-core one for bf16 at head dims 64-256,
+     80 and the cross-attention's shapes included,
      the CUDA-core one for the rest and, on the same bf16 inputs, for
      comparison) within 2e-4 (float32) and 2e-2 (bfloat16) over head dims
      32-256, GQA and MQA groups, causal or not, local windows and ragged
@@ -102,9 +103,10 @@ On one CUDA card it:
      its defaults (batch 32 x 256, full mode, 8 miners, bf16) for 8
      blocks with a checkpoint every 4, as a process of its own: its
      ledger verifies, each checkpoint's SHA-256 is its file's, an
-     in-process audit replay gives the CLI's digests and hashes with 28
-     training-instance forward and 28 bf16 backward launches a step, the
-     loss falls, the last checkpoint loads to the replay's state digest;
+     in-process audit replay gives the CLI's digests and hashes with 56
+     training-instance forward (``remat``, the config's: each layer runs
+     again in the backward) and 28 bf16 backward launches a step, the
+     step split by CUDA events, the loss falls, the last checkpoint loads to the replay's state digest;
      2 ``--mode optimal`` blocks through the driver's ``main`` in this
      process; and a 2-layer cut of qwen3-0.6b at full width on the card
      against the CPU port's step from the same state: each leaf's
@@ -114,16 +116,23 @@ On one CUDA card it:
      pnpcoin-micro (hd 16) through ``ModelTrainingWorkload(**
      MICRO_KWARGS)``, 4 blocks on the card and the CPU port (losses
      within 1e-5; ``"micro_train"``);
-  6. serves three models at full width and depth through
+  6. serves nine models at full width and depth through
      ``repro_torch.launch.serve`` (batch 8, 32 new tokens, bf16, random
      weights from a fixed seed): qwen3-0.6b (prompt 2048; flash attention),
-     rwkv6-7b (prompt 2048; WKV-6 in prefill and decode) and
+     rwkv6-7b (prompt 2048; WKV-6 in prefill and decode),
      recurrentgemma-2b (prompt 4096; decay scan and windowed flash
-     attention), bf16 attention on the tensor-core kernel. Each path's
-     launch counts must equal its layer counts, its first and last launch
-     of each kernel must equal the plain version on the same inputs, and a
-     reduced float32 model served on the card (its attention on the
-     CUDA-core kernel, launches counted) and on the CPU must agree;
+     attention), qwen3-8b, stablelm-1.6b, stablelm-3b (hd 80) and
+     olmoe-1b-7b (MoE; prompt 2048 each), llama-3.2-vision-11b (prompt
+     2048; cross-attention to 1,601 image tokens in prefill and at every
+     decode step) and whisper-medium (prompt 416; an encoder over 1,500
+     frames, cross-attention in prefill and at every decode step), bf16
+     attention on the tensor-core kernel. Each path's launch counts must
+     equal its layer counts, its first and last launch of each kernel at
+     each call site must equal the plain version on the same inputs, and
+     a reduced float32 model served on the card (its attention on the
+     CUDA-core kernel, launches counted) and on the CPU must agree, MoE
+     expert choices included; arctic-480b (960 GB of bf16 weights) by its
+     reduced model only;
   7. counts with torch.profiler the CUDA kernels a SHA-256 call runs (one)
      and those of 3 pnpcoin-demo training steps (the flash forward's
      training instance and the backward's three kernels once a layer and
@@ -195,13 +204,13 @@ BF16_FLOPS_S = 989e12
 # float32 outside the tensor cores (data sheet): the recurrences' rate
 F32_FLOPS_S = 67e12
 # instantiations in the library: SHA-256 3 (raw/bswap) x 3 (W = 2, 8 or
-# any), Merkle 1, flash 5 head dims x 2 dtypes, tensor-core flash 3 head
+# any), Merkle 1, flash 5 head dims x 2 dtypes, tensor-core flash 4 head
 # dims (bf16) and its training instance 2, WKV-6 2 dtypes, decay scan 2
 # (tiled, one thread a chain), flash's training instance (float32, with
 # the row log-sum-exp) 4 head dims, the flash backward 3 kernels (D, dK
 # and dV, dQ) x 4 head dims, the bf16 backward 2 kernels (D; dK, dV and
 # dQ) x 2 head dims
-N_KERNEL_INSTANCES = 9 + 1 + 10 + 3 + 2 + 2 + 2 + 4 + 12 + 4
+N_KERNEL_INSTANCES = 9 + 1 + 10 + 4 + 2 + 2 + 2 + 4 + 12 + 4
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -209,6 +218,9 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 # 4096, twice its local window, so the window mask and the ring-cache roll
 # both run at full width
 RWKV_PROMPT, RG_PROMPT = 2048, 4096
+# whisper-medium's prompt: its decoder's context is 448 tokens, so 416 plus
+# the 32 new ones fill it
+WHISPER_PROMPT = 416
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # the kernels' tiles, constants in their sources, which the edge cases
 # follow: the decay scan's STEPS x 32 DECAY_WARPS, SHA-256's THREADS rows
@@ -413,7 +425,8 @@ def flash_tc_resources() -> dict:
     import ctypes
     from repro_torch.kernels import native
     lib, out = native.library(), {}
-    for hd, lse in ((64, 0), (128, 0), (256, 0), (64, 1), (128, 1)):
+    for hd, lse in ((64, 0), (80, 0), (128, 0), (256, 0), (64, 1),
+                    (128, 1)):
         regs, smem, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         rc = lib.pnp_flash_attention_tc_info(hd, lse, ctypes.byref(regs),
                                              ctypes.byref(smem),
@@ -551,8 +564,9 @@ def _flash_both(q, k, v, want, label, worst, **kw) -> None:
     """The flash call the path makes (``flash_attention_cuda``, which picks
     the kernel by dtype and head dim) against the plain version, its
     launch counted on the kernel it must take; and for bf16 inputs the
-    tensor-core kernel takes, the CUDA-core kernel on the same inputs too.
-    Records each kernel's largest error in ``worst``."""
+    tensor-core kernel takes, the CUDA-core kernel on the same inputs too
+    where it takes the head dim (not 80). Records each kernel's largest
+    error in ``worst``."""
     import torch
     from repro_torch.kernels import flash_attention, flash_attention_tc
     dtype = str(q.dtype).split(".")[1]
@@ -561,7 +575,7 @@ def _flash_both(q, k, v, want, label, worst, **kw) -> None:
     used = flash_attention_tc if tc else flash_attention
     runs = {"tensor_core" if tc else "cuda_core":
             flash_attention.flash_attention_cuda}
-    if tc:
+    if tc and q.shape[-1] in flash_attention.HEAD_DIMS:
         runs["cuda_core"] = flash_attention.flash_attention_cuda_core
     for kernel, fn in runs.items():
         before = used.launches
@@ -583,8 +597,13 @@ def flash_vs_plain(dev) -> dict:
     second launch: head dims 16, 32, 64, 128; GQA groups 1 and 2; causal and
     not; S = T in {33, 1000, 2048} and S != T; S and T one off the CUDA-core
     kernel's block of query rows and tile of keys; float32 and bfloat16;
-    the reduced float32 models' own calls (hd 32, batch 2, prompt 100); and
-    the large equal-score case."""
+    the reduced float32 models' own calls (hd 32, batch 2, prompt 100); the
+    large equal-score case; then in bfloat16 only (the tensor-core kernel's
+    shapes): head dim 80, causal or not, S != T both ways, S and T one off
+    its 128-row items and 128-key tiles, G 1 and 4; the cross-attention's
+    shapes (whisper's 16 heads, hd 64: S 1 and 416 over T 1500;
+    llama-3.2-vision's 32 over 8, hd 128: S 1 over T 1601); and G = 7
+    (arctic's 56 heads over 8, hd 128)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -623,44 +642,74 @@ def flash_vs_plain(dev) -> dict:
     check(bool(torch.isfinite(out).all()) and torch.allclose(
         out, torch.ones_like(out), rtol=1e-5, atol=0),
         "flash large equal scores give 1")
-    return {"cases": 2 * len(cases) + 3, "max_abs_err": worst,
-            "tolerance": FLASH_TOL, "stability_equal_scores": True}
+    # bf16 only: (B, S, T, H, Kv, hd, causal)
+    bf16_cases = [(2, n, n, 2 * g, 2, 80, causal) for g in (1, 4)
+                  for causal in (True, False) for n in (33, 1000)]
+    bf16_cases += [(2, 700, 1500, 4, 2, 80, False),
+                   (2, 1500, 700, 4, 2, 80, False),
+                   (2, 129, 129, 8, 2, 80, True),
+                   (2, 127, 127, 2, 2, 80, True),
+                   (2, 129, 127, 2, 2, 80, False),
+                   (2, 257, 255, 8, 2, 80, False),
+                   (2, 1, 1500, 16, 16, 64, False),
+                   (2, 416, 1500, 16, 16, 64, False),
+                   (2, 1, 1601, 32, 8, 128, False),
+                   (2, 300, 300, 56, 8, 128, True),
+                   (2, 300, 700, 56, 8, 128, False)]
+    for B, n_q, n_k, H, Kv, hd, causal in bf16_cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen,
+                               device=dev).to(torch.bfloat16)
+        q, k, v = randn(B, n_q, H, hd), randn(B, n_k, Kv, hd), \
+            randn(B, n_k, Kv, hd)
+        want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+        _flash_both(q, k, v, want, f"bfloat16 hd={hd} H={H} Kv={Kv} causal="
+                    f"{causal} S={n_q} T={n_k}", worst, causal=causal)
+    return {"cases": 2 * len(cases) + 3 + len(bf16_cases),
+            "max_abs_err": worst, "tolerance": FLASH_TOL,
+            "stability_equal_scores": True,
+            "bf16_only_cases": [dict(zip("B S T H Kv hd causal".split(), c))
+                                for c in bf16_cases]}
 
 
 def _flash_timing(q, k, v, sdpa, pairs, **kw) -> dict:
     """The tensor-core kernel, the CUDA-core kernel on the same bf16 inputs
-    and SDPA (the yardstick, never on the path), timed in turns in this
-    call; the plain version; the bound (4 hd flops a (query, key) pair in
-    the band, an FMA as two, at the bf16 peak; q, k, v and out once at the
-    HBM rate) and each one's TFLOP/s."""
+    (where it takes the head dim: not at 80) and SDPA (the yardstick, never
+    on the path), timed in turns in this call; the plain version; the bound
+    (4 hd flops a (query, key) pair in the band, an FMA as two, at the bf16
+    peak, hd the inputs' own; q, k, v and out once at the HBM rate) and
+    each one's TFLOP/s."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda_core
     from repro_torch.kernels.flash_attention_tc import flash_attention_tc_cuda
     B, S, H, hd = q.shape
+    with_core = hd in flash_attention.HEAD_DIMS
     out = flash_attention_tc_cuda(q, k, v, **kw)
     check(torch.equal(out, flash_attention_tc_cuda(q, k, v, **kw)),
           "tensor-core flash kernel equal from run to run")
-    core = flash_attention_cuda_core(q, k, v, **kw)
-    check(torch.equal(core, flash_attention_cuda_core(q, k, v, **kw)),
-          "CUDA-core flash kernel equal from run to run")
     check(torch.allclose(sdpa().transpose(1, 2).float(), out.float(),
-                         rtol=2e-2, atol=2e-2)
-          and torch.allclose(core.float(), out.float(), rtol=2e-2,
+                         rtol=2e-2, atol=2e-2),
+          "SDPA agrees with the tensor-core kernel")
+    fns = {"tensor_core": lambda: flash_attention_tc_cuda(q, k, v, **kw)}
+    if with_core:
+        core = flash_attention_cuda_core(q, k, v, **kw)
+        check(torch.equal(core, flash_attention_cuda_core(q, k, v, **kw)),
+              "CUDA-core flash kernel equal from run to run")
+        check(torch.allclose(core.float(), out.float(), rtol=2e-2,
                              atol=2e-2),
-          "SDPA and the CUDA-core kernel agree with the tensor-core kernel")
-    del out, core
-    ms = in_turns({
-        "tensor_core": lambda: flash_attention_tc_cuda(q, k, v, **kw),
-        "cuda_core": lambda: flash_attention_cuda_core(q, k, v, **kw),
-        "sdpa": sdpa})
+              "the CUDA-core kernel agrees with the tensor-core kernel")
+        del core
+        fns["cuda_core"] = lambda: flash_attention_cuda_core(q, k, v, **kw)
+    del out
+    ms = in_turns({**fns, "sdpa": sdpa})
     plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
                        reps=3, rounds=1)
     flops = 4 * hd * pairs * B * H
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = flops / BF16_FLOPS_S, nbytes / HBM_BYTES_S
     bound = max(t_ops, t_bytes) * 1e3
-    return {"ms": ms["tensor_core"], "cuda_core_ms": ms["cuda_core"],
+    return {"ms": ms["tensor_core"], "cuda_core_ms": ms.get("cuda_core"),
             "plain_ms": plain_ms, "library_ms": ms["sdpa"],
             "bound_ms": bound,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
@@ -691,6 +740,43 @@ def flash_times(dev) -> dict:
     return {"shape": f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal",
             "library": "torch.nn.functional.scaled_dot_product_attention",
             **_flash_timing(q, k, v, sdpa, S * (S + 1) // 2, causal=True)}
+
+
+def flash_serving_shape_times(dev) -> dict:
+    """The tensor-core kernel at the shapes the new serving paths give it,
+    each in turns with SDPA (and the CUDA-core kernel where it takes the
+    head dim), the plain version and the bound from the call's own head
+    dim: stablelm-3b's prefill (hd 80, B 8, S = T 2048, 32 heads over 32,
+    causal), whisper-medium's encoder (B 8, S = T 1500, 16 heads, hd 64,
+    not causal) and cross-attention prefill (S 416 over T 1500).
+    ``chip_probes.py flash_tc_head_shapes`` times shapes no path runs."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(20264)
+    out = {}
+    for name, (B, S, T, H, Kv, hd, causal) in (
+            ("stablelm-3b prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT,
+                                     32, 32, 80, True)),
+            ("whisper-medium encoder", (SERVE_BATCH, 1500, 1500, 16, 16, 64,
+                                        False)),
+            ("whisper-medium cross prefill", (SERVE_BATCH, WHISPER_PROMPT,
+                                              1500, 16, 16, 64, False))):
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, T, Kv, hd, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, T, Kv, hd, generator=gen, device=dev).bfloat16()
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        pairs = S * (S + 1) // 2 if causal else S * T
+        out[name] = {
+            "shape": f"B={B} S={S} T={T} H={H} Kv={Kv} hd={hd} bf16 "
+                     + ("causal" if causal else "not causal"),
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            **_flash_timing(q, k, v, sdpa, pairs, causal=causal)}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
 
 
 def flash_core_f32_times(dev) -> dict:
@@ -1770,30 +1856,42 @@ def _against_plain(name, args, kw, out) -> float:
     return err
 
 
+def _call_site(name: str, args, kw) -> str:
+    """Where on a serving path a kernel was called: flash attention by its
+    mask and shape (a causal self-attention; not causal with S = T, an
+    encoder's; with S != T, a cross-attention's prefill; with S = 1, a
+    cross-attention's decode step), the other kernels by name."""
+    if name != "flash_attention":
+        return name
+    S, T = args[0].shape[1], args[1].shape[1]
+    if kw.get("causal"):
+        return "causal"
+    return ("not causal, S = 1" if S == 1 else
+            "not causal, S = T" if S == T else "not causal, S != T")
+
+
 def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
                per_decode: dict, small_counts: dict,
-               small_layers: int = 0) -> dict:
+               small_layers: int = 0, flash_sites: int = 1) -> dict:
     """One serving path at full width and depth through
     ``repro_torch.launch.serve.main``, with every kernel's launch count
     read around it and checked against ``per_prefill`` + ``per_decode`` x
     the decode steps (0 for a kernel not named); the first and last launch
-    of each kernel held against its plain version; then a warm run timed,
-    with the kernels of its prefill timed by CUDA events; then a reduced
-    float32 model (``small_layers`` layers if given) served on the card,
-    its launch counts read around it and checked against
-    ``small_counts``, and on the CPU from the same weights."""
-    import dataclasses
-
+    of each kernel at each of its call sites (``_call_site``;
+    ``flash_sites`` of flash attention's) held against its plain version;
+    then a warm run timed, with the kernels of its prefill (and of a
+    decode step, where one launches any) timed by CUDA events; then
+    ``reduced_vs_cpu``."""
     import torch
-    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models.model import build_model
 
     cfg = get_config(arch)
     counters = _launch_counters()
     real = {name: getattr(ops, name) for name in SERVE_KERNELS}
-    seen = {name: [] for name in SERVE_KERNELS}   # first and latest launch
+    # (kernel, call site) -> its first and latest launch, and its launches
+    seen, by_site = {}, {}
 
     def recording(name):
         state_at = SERVE_KERNELS[name]
@@ -1804,8 +1902,10 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
                 args = list(args)
                 args[state_at] = args[state_at].clone()
             kw.pop("seq_chunk", None)
-            slot = 1 if seen[name] else 0
-            seen[name][slot:] = [(tuple(args), kw, out)]
+            site = (name, _call_site(name, args, kw))
+            calls = seen.setdefault(site, [])
+            calls[1 if calls else 0:] = [(tuple(args), kw, out)]
+            by_site[site] = by_site.get(site, 0) + 1
             return out
         return call
 
@@ -1838,11 +1938,19 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
     check(res.last_logits.shape == (SERVE_BATCH, 1, cfg.padded_vocab),
           "logits shape")
     launch_err, entry_counts = {}, _by_entry(counts)
-    for name, calls in seen.items():
+    for name in SERVE_KERNELS:
         n = entry_counts.get(name, 0)
-        check(len(calls) == (2 if n > 1 else n),
-              f"{arch}: first and last {name} launch recorded")
-        launch_err[name] = [_against_plain(name, *c) for c in calls]
+        sites = [site for site in seen if site[0] == name]
+        want_sites = flash_sites if name == "flash_attention" else 1
+        check(len(sites) == (want_sites if n else 0)
+              and sum(by_site[site] for site in sites) == n,
+              f"{arch}: {name} launched at {want_sites} call sites, "
+              f"{n} times: {by_site}")
+    for site, calls in seen.items():
+        check(len(calls) == min(by_site[site], 2),
+              f"{arch}: first and last {site} launch recorded")
+        launch_err[" / ".join(site)] = [_against_plain(site[0], *c)
+                                        for c in calls]
         torch.cuda.empty_cache()
     seen.clear()
     first = {"prefill_ms": res.prefill_s * 1e3,
@@ -1890,47 +1998,113 @@ def serve_path(dev, arch: str, prompt: int, per_prefill: dict,
             sum(kernel_ms.values()) / (warm.prefill_s * 1e3),
         "warm_decode_ms_per_token": warm.decode_s_per_token * 1e3,
         "warm_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    if "wkv6" in per_decode:
-        decode_events = events["wkv6"][entry_prefill["wkv6"]:]
-        timing_out["warm_wkv6_ms_per_decode_step"] = sum(
+    for name in _by_entry(per_decode):
+        decode_events = events[name][entry_prefill[name]:]
+        timing_out[f"warm_{name}_ms_per_decode_step"] = sum(
             a.elapsed_time(b) for a, b in decode_events) / (SERVE_NEW - 1)
     del warm, events
     torch.cuda.empty_cache()
+    return {"phase": "serve", "arch": arch, "batch": SERVE_BATCH,
+            "prompt": prompt, "new_tokens": SERVE_NEW, "dtype": cfg.dtype,
+            "counts": counts,
+            "launches_by_call_site": {" / ".join(k): n
+                                      for k, n in by_site.items()},
+            **first, **timing_out,
+            "launch_vs_plain_max_abs_err": {
+                k: v for k, v in launch_err.items() if v},
+            **reduced_vs_cpu(dev, arch, small_counts, small_layers)}
 
-    # a small float32 model: the card against the CPU on the same weights
-    small = reduced(cfg)
+
+def reduced_vs_cpu(dev, arch: str, small_counts: dict,
+                   small_layers: int = 0) -> dict:
+    """The reduced float32 ``arch`` (``small_layers`` layers if given)
+    served on the card, its launch counts read around it and checked
+    against ``small_counts``, and on the CPU from the same weights: tokens
+    equal, logits within 1e-4, and every MoE layer's expert choices equal
+    (where one differs, the failure names the gap between the two
+    experts' router probabilities on the CPU)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    counters = _launch_counters()
+    small = reduced(get_config(arch))
     if small_layers:
         small = dataclasses.replace(small, n_layers=small_layers)
     params = build_model(small).init(torch.Generator().manual_seed(1))
+    cross = params.get("groups", {}).get("cross")
+    if cross is not None:
+        # the init's cross-layer gates are 0, where the image path adds
+        # nothing; a draw in [0.5, 1) lets the comparison hold that path
+        cross["gate"] = 0.5 + 0.5 * torch.rand(
+            cross["gate"].shape, generator=torch.Generator().manual_seed(2))
 
     def to(tree, device):
         return {k: to(v, device) if isinstance(v, dict) else v.to(device)
                 for k, v in tree.items()}
-    kw = dict(batch=2, prompt_len=100, new_tokens=8, seed=1)
+    real_route = moe.route
+    routes = {"card": [], "cpu": []}
+
+    def serve_on(where, device, weights):
+        def route(router, xt, top_k):
+            out = real_route(router, xt, top_k)
+            routes[where].append((out[0].cpu(), out[2].cpu()))
+            return out
+        moe.route = route
+        try:
+            return serve.serve(small, device=device, params=weights,
+                               batch=2, prompt_len=100, new_tokens=8, seed=1)
+        finally:
+            moe.route = real_route
     for mod in counters.values():
         mod.launches = 0
-    on_card = serve.serve(small, device=dev, params=to(params, dev), **kw)
+    on_card = serve_on("card", dev, to(params, dev))
     torch.cuda.synchronize()
     small_launches = {name: mod.launches for name, mod in counters.items()
                       if mod.launches or name in small_counts}
     check(small_launches == small_counts,
           f"reduced {arch}: launch counts {small_launches}, expected "
           f"{small_counts}")
-    on_cpu = serve.serve(small, device="cpu", params=params, **kw)
+    on_cpu = serve_on("cpu", "cpu", params)
+    check(len(routes["card"]) == len(routes["cpu"])
+          == (small.n_layers * 8 if small.family == "moe" else 0),
+          f"reduced {arch}: the router ran once a layer and step")
+    for call, ((_, i_card), (probs, i_cpu)) in enumerate(
+            zip(routes["card"], routes["cpu"])):
+        if not torch.equal(i_card, i_cpu):
+            t, j = (i_card != i_cpu).nonzero()[0].tolist()
+            gap = float(probs[t, i_card[t, j]] - probs[t, i_cpu[t, j]])
+            check(False, f"reduced {arch}: router call {call}, token {t}: "
+                         f"expert {int(i_card[t, j])} on the card, "
+                         f"{int(i_cpu[t, j])} on the CPU, probability gap "
+                         f"{gap} on the CPU")
     small_err = float((on_card.last_logits.cpu() - on_cpu.last_logits)
                       .abs().max())
     check(torch.equal(on_card.tokens.cpu(), on_cpu.tokens),
           f"reduced {arch}: card and CPU tokens equal")
     check(small_err <= 1e-4, f"reduced {arch}: logits within 1e-4 "
                              f"({small_err})")
-    return {"phase": "serve", "arch": arch, "batch": SERVE_BATCH,
-            "prompt": prompt, "new_tokens": SERVE_NEW, "dtype": cfg.dtype,
-            "counts": counts, **first, **timing_out,
-            "launch_vs_plain_max_abs_err": {
-                k: v for k, v in launch_err.items() if v},
-            "reduced_model": f"{small.name}, {small.n_layers} layers",
-            "reduced_counts": small_launches,
-            "reduced_card_vs_cpu_max_abs_err": small_err}
+    out = {"reduced_model": f"{small.name}, {small.n_layers} layers",
+           "reduced_counts": small_launches,
+           "reduced_card_vs_cpu_max_abs_err": small_err}
+    if cross is not None:
+        # the image reaches the logits: without its projection they move
+        blind = serve.serve(small, device="cpu",
+                            params={**params,
+                                    "img_proj": torch.zeros_like(
+                                        params["img_proj"])},
+                            batch=2, prompt_len=100, new_tokens=8, seed=1)
+        moved = float((blind.last_logits - on_cpu.last_logits).abs().max())
+        check(moved > 1e-2, f"reduced {arch}: the image moves the logits "
+                            f"({moved})")
+        out["reduced_logits_moved_by_the_image"] = moved
+    if routes["card"]:
+        out["reduced_router_calls_with_equal_choices"] = len(routes["card"])
+    return out
 
 
 # the flash backward's cases: (B, S, T, H, Kv, causal, window), at each head
@@ -3126,10 +3300,12 @@ def train_cli_path(dev) -> dict:
     drawn again and timed alone): every block's state digest and hash,
     the last block's included, equal the CLI's (across processes, so the
     card's products repeat bit for bit), the loss falls from the first
-    block, 28 training-instance forward and 28 backward launches a step
-    on the tensor cores and no other kernel, and the last checkpoint
-    loads to the replay's ``state_digest``; a step split by CUDA events;
-    peak device memory. Then
+    block, at the config's ``remat``: 56 training-instance forward (each
+    layer's again in the backward) and 28 backward launches a step on the
+    tensor cores and no other kernel, and the last checkpoint
+    loads to the replay's ``state_digest``; a step split by CUDA events,
+    with its peak device memory (``chip_probes.py remat_step`` times it
+    without remat too); peak device memory. Then
     ``CLI_ES_BLOCKS`` optimal-mode blocks through the driver's ``main`` in
     this process (a process of its own would pay its start and imports
     again; an ES candidate's time measured here), and qwen3-0.6b cut to ``CUT_LAYERS``
@@ -3206,15 +3382,18 @@ def train_cli_path(dev) -> dict:
             block_s.append(time.perf_counter() - t)
         counts = _counts()
         peak = torch.cuda.max_memory_allocated()
+        # remat (the config's): each layer's forward runs again in the
+        # backward, so the training instance launches twice a layer
         layers = cfg.n_layers * CLI_BLOCKS
-        check(counts["flash_attention_tc"] == counts[
-                  "flash_attention_tc_training"] == layers
+        check(cfg.remat and counts["flash_attention_tc"] == counts[
+                  "flash_attention_tc_training"] == 2 * layers
               and counts["flash_attention_tc_bwd"] == layers
               and all(counts[k] == 0 for k in (
                   "flash_attention", "flash_attention_bwd", "sha256",
                   "merkle", "wkv6", "decay_scan")),
-              f"train_cli: {cfg.n_layers} training-instance forward and "
-              f"backward launches a step and no other kernel, got {counts}")
+              f"train_cli: with remat, 2 x {cfg.n_layers} training-instance "
+              f"forward and {cfg.n_layers} backward launches a step and no "
+              f"other kernel, got {counts}")
         check([r.state_digest for r in tr.history]
               == [blk.state_digest for blk in ledger.blocks]
               and [r.block_hash for r in tr.history]
@@ -3645,6 +3824,8 @@ def main() -> int:
     merkle_time = merkle_times(dev)
     flash_time = flash_times(dev)
     emit({"phase": "flash_times", "gpu": smi, **flash_time})
+    flash_new = flash_serving_shape_times(dev)
+    emit({"phase": "flash_times_serving_shapes", "gpu": smi, **flash_new})
     core_f32 = flash_core_f32_times(dev)
     emit({"phase": "flash_cuda_core_float32_times", "gpu": smi, **core_f32})
     rec_times = recurrent_times(dev)
@@ -3655,6 +3836,7 @@ def main() -> int:
     emit({"phase": "flash_tc_bwd_times", "gpu": smi, **tc_bwd_time})
     emit({"phase": "kernel_times", "gpu": smi, "sha256": sha_times,
           "merkle": merkle_time, "flash_attention": flash_time,
+          "flash_attention_serving_shapes": flash_new,
           "flash_cuda_core_float32": core_f32,
           "flash_attention_bwd": bwd_time,
           "flash_attention_tc_bwd": tc_bwd_time, **rec_times})
@@ -3792,6 +3974,29 @@ def main() -> int:
     }
     for res in served.values():
         emit(res)
+    # the dense configs (hd 128, 64 and 80), then a layer of attention
+    # and one of MoE each (olmoe), whisper's encoder, decoder and
+    # cross-attention (24 each in prefill; the cross-attention at every
+    # decode step too), llama-vision's 32 self- and 8 cross-attention layers
+    # (the cross ones at every decode step); the reduced whisper has 2
+    # encoder and 2 decoder layers, the reduced llama-vision 2 groups of
+    # 4 + 1
+    for arch, prompt, per_prefill, per_decode, small, sites in (
+            ("qwen3-8b", SERVE_PROMPT, 36, 0, 2, 1),
+            ("stablelm-1.6b", SERVE_PROMPT, 24, 0, 2, 1),
+            ("stablelm-3b", SERVE_PROMPT, 32, 0, 2, 1),
+            ("olmoe-1b-7b", SERVE_PROMPT, 16, 0, 2, 1),
+            ("llama-3.2-vision-11b", SERVE_PROMPT, 40, 8, 10 + 7 * 2, 3),
+            ("whisper-medium", WHISPER_PROMPT, 72, 24, 6 + 7 * 2, 4)):
+        served[arch] = serve_path(
+            dev, arch, prompt, {"flash_attention_tc": per_prefill},
+            {"flash_attention_tc": per_decode} if per_decode else {},
+            {"flash_attention": small}, flash_sites=sites)
+        emit(served[arch])
+    # arctic-480b: ~960 GB of bf16 weights; its reduced model only
+    arctic = {"phase": "serve", "arch": "arctic-480b", "full_width": False,
+              **reduced_vs_cpu(dev, "arctic-480b", {"flash_attention": 2})}
+    emit(arctic)
     emit(sha_kernels_a_call(dev))
     emit(train_kernels_a_step(dev))
 
@@ -3803,12 +4008,15 @@ def main() -> int:
     chunk = sha_times[0]
     qwen, rg = served["qwen3-0.6b"]["counts"], \
         served["recurrentgemma-2b"]["counts"]
+    tc_by_path = {arch: res["counts"]["flash_attention_tc"]
+                  for arch, res in served.items()
+                  if res["counts"]["flash_attention_tc"]}
     small_flash = {arch: res["reduced_counts"].get("flash_attention", 0)
-                   for arch, res in served.items()}
-    check(qwen["flash_attention_tc"] > 0 and rg["flash_attention_tc"] > 0
+                   for arch, res in {**served, "arctic-480b": arctic}.items()}
+    check(len(tc_by_path) == 8
           and all(small_flash[a] > 0 for a in ("qwen3-0.6b",
                                                 "recurrentgemma-2b")),
-          "each flash kernel launched on its serving path")
+          "each flash kernel launched on its serving paths")
     flash_rg = rec_times["flash_attention_rg"]
 
     def at(times, kernel):
@@ -3900,10 +4108,14 @@ def main() -> int:
                 for name, res in paths.items()}}),
         row("flash_attention_tc", "flash_attention_tc",
             "flash_attention_tc.cu", "flash_attention.py:28",
-            qwen["flash_attention_tc"] + rg["flash_attention_tc"]
-            + cli["launches"]["flash_attention_tc"],
+            sum(tc_by_path.values()) + cli["launches"]["flash_attention_tc"],
             at(flash_time, "tensor_core"),
             recurrentgemma_shape=at(flash_rg, "tensor_core"),
+            hd80_shape=at(flash_new["stablelm-3b prefill"], "tensor_core"),
+            whisper_encoder_shape=at(flash_new["whisper-medium encoder"],
+                                     "tensor_core"),
+            whisper_cross_shape=at(flash_new["whisper-medium cross prefill"],
+                                   "tensor_core"),
             training_instance={
                 key: {"ms": t["forward_training_instance_ms"],
                       "ms_from_graph":
@@ -3913,12 +4125,16 @@ def main() -> int:
                       "bound_ms": t["forward_bound_ms"],
                       "bound_by": t["forward_bound_by"]}
                 for key, t in tc_bwd_time.items()},
-            path="serving qwen3-0.6b (28) and recurrentgemma-2b (8), bf16; "
+            path="serving the bf16 models at full width: qwen3-0.6b (28), "
+                 "recurrentgemma-2b (8), qwen3-8b (36), stablelm-1.6b (24), "
+                 "stablelm-3b (32, hd 80), olmoe-1b-7b (16), "
+                 "llama-3.2-vision-11b (40, then 8 a decode step) and "
+                 "whisper-medium (72, then 24 a decode step) in prefill; "
                  "training qwen3-0.6b through the train CLI (its training "
-                 "instance, 28 a step; ES candidates the serving one)",
+                 "instance, 56 a step with remat; ES candidates the serving "
+                 "one)",
             launches_by_path={
-                "qwen3-0.6b": qwen["flash_attention_tc"],
-                "recurrentgemma-2b": rg["flash_attention_tc"],
+                **tc_by_path,
                 "train_cli": cli["launches"]["flash_attention_tc"]}),
         row("flash_attention_fwd", "flash_attention", "flash_attention.cu",
             "flash_attention.py:28", sum(small_flash.values())
@@ -3937,8 +4153,9 @@ def main() -> int:
             bf16_inputs_not_on_path={
                 "qwen3-0.6b": at(flash_time, "cuda_core"),
                 "recurrentgemma-2b": at(flash_rg, "cuda_core")},
-            path="float32 (and hd 32): the reduced float32 qwen3-0.6b (2) "
-                 "and recurrentgemma-2b (1) served, pnpcoin-demo trained "
+            path="float32 (and hd 32): the reduced float32 models served "
+                 "(qwen3-0.6b, recurrentgemma-2b and the 8 others), "
+                 "pnpcoin-demo trained "
                  "(its training instance, which saves the row "
                  "log-sum-exp: model_train, pouw_full) and its ES "
                  "candidates scored (the serving instance: pouw_es); "

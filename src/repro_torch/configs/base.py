@@ -3,9 +3,8 @@
 
 ``get_config(name)`` resolves from the registry; ``reduced(cfg)`` gives the
 small CPU variant (2 layers, d_model <= 256, head_dim 32) the tests use.
-Only the configs the port runs are registered: ``qwen3-0.6b``,
-``rwkv6-7b`` and ``recurrentgemma-2b`` (serving) and ``pnpcoin-demo`` (the
-chain's training payload).
+Every config of the reference is registered: the model zoo the port
+serves, and ``pnpcoin-demo`` (the chain's training payload).
 """
 from __future__ import annotations
 
@@ -100,7 +99,9 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def _load_all() -> None:
     import importlib
-    for mod in ("qwen3_0_6b", "recurrentgemma_2b", "rwkv6_7b",
+    for mod in ("whisper_medium", "arctic_480b", "stablelm_1_6b",
+                "qwen3_0_6b", "qwen3_8b", "olmoe_1b_7b", "stablelm_3b",
+                "llama_3_2_vision_11b", "recurrentgemma_2b", "rwkv6_7b",
                 "pnpcoin_demo"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 

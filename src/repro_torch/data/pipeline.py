@@ -6,8 +6,10 @@ Batches are a pure function of (seed, step), drawn from
 host, so a port node and a reference node derive the same token bits from
 the same meta: the pipeline's checksum, its batches and their digests are
 the reference's. The token stream is a Zipf-ish mixture with Markov
-structure so the LM loss actually decreases. Tensors are int32 on the CPU;
-the training step moves them to its device.
+structure so the LM loss actually decreases. A vlm batch also carries
+``image_embeds`` and an encdec batch ``audio_frames`` (the stubbed
+encoders' outputs), normal draws in float32 cast to the model's dtype.
+Tensors are on the CPU; the step moves them to its device.
 """
 from __future__ import annotations
 
@@ -19,13 +21,6 @@ import torch
 
 from repro_torch import random
 from repro_torch.configs.base import InputShape, ModelConfig
-
-# where each modality's port stands in ROADMAP.md
-_MODALITY_TODO = {
-    "vlm": "ROADMAP.md §1, the remaining model families (models/vlm.py)",
-    "encdec": "ROADMAP.md §1, the remaining model families "
-              "(models/encdec.py)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +54,6 @@ class SyntheticTokenPipeline:
 
     def _batch_from_key(self, key: torch.Tensor) -> Dict[str, Any]:
         cfg, shape = self.cfg, self.shape
-        if cfg.family in _MODALITY_TODO and shape.kind != "decode":
-            raise NotImplementedError(
-                f"family {cfg.family!r} inputs: {_MODALITY_TODO[cfg.family]}")
         B = shape.global_batch
         S = shape.seq_len if shape.kind in ("train", "prefill") else 1
         k1, k2, k3 = random.split(key, 3)
@@ -79,4 +71,13 @@ class SyntheticTokenPipeline:
             out["labels"] = torch.cat(
                 [tokens[:, 1:], torch.full((B, 1), -1, dtype=torch.int32)],
                 dim=1)
+        dtype = getattr(torch, cfg.dtype)
+        if cfg.family == "vlm" and shape.kind != "decode":
+            out["image_embeds"] = random.normal(
+                random.fold_in(key, 7),
+                (B, cfg.n_img_tokens, cfg.d_vision)).to(dtype)
+        if cfg.family == "encdec" and shape.kind != "decode":
+            out["audio_frames"] = random.normal(
+                random.fold_in(key, 8),
+                (B, cfg.n_enc_tokens, cfg.d_model)).to(dtype)
         return out

@@ -3,9 +3,11 @@
 // Replaces: src/repro/kernels/flash_attention.py `_flash_kernel` /
 // `flash_attention_pallas` (reached through `ops.flash_attention`), whose
 // function is `repro.models.attention.chunked_attention`'s, for bfloat16
-// inputs at head dims 64, 128 and 256: every bf16 prefill layer of
-// qwen3-0.6b and recurrentgemma-2b computes it. float32 inputs and head
-// dim 32 stay on the CUDA-core kernel of flash_attention.cu; the wrapper
+// inputs at head dims 64, 80, 128 and 256: every bf16 attention layer of
+// the served models computes it (causal prefill, with recurrentgemma-2b's
+// window; whisper's encoder and every cross-attention not causal, S != T,
+// S = 1 at a decode step). float32 inputs and head dims 16 and 32 stay on
+// the CUDA-core kernel of flash_attention.cu; the wrapper
 // (kernels/flash_attention.py) chooses by dtype and head dim alone.
 //
 // q (B, S, H, hd), k and v (B, T, Kv, hd), out (B, S, H, hd), bfloat16,
@@ -34,6 +36,14 @@
 //   128-byte swizzle caps a box at 64 bf16 columns, so hd 128 and 256 rows
 //   arrive as 64-column chunks, and the wgmma descriptors step over them.
 //   Rows past S or T arrive as zeros; keys past T are masked all the same;
+// - head dim 80 (stablelm-3b) runs the hd-128 pipeline: its 160-byte rows
+//   are no whole number of 128-byte swizzle boxes, so the tensor maps keep
+//   an hd extent of 80 and bring two 64-column boxes, TMA filling columns
+//   80-127 with zeros. S = Q K^T takes only the five k16 steps of the 80
+//   columns; O += P V runs at N = 128, its columns 80-127 stay 0 and are
+//   not stored. That costs 1.3x the products (8 k16 steps of P V where 5
+//   would do, beside S's 5), and the shared memory and registers of hd
+//   128;
 // - a warp-specialised pipeline: a block of three warpgroups on each SM
 //   (persistent), looping over (128 query rows, head, batch row) items,
 //   the heaviest causal ones first, dealt to the blocks in snake order so
@@ -92,6 +102,11 @@ template <int HD> struct Tile;
 template <> struct Tile<64> { static constexpr int BK = 128, STAGES = 3; };
 template <> struct Tile<128> { static constexpr int BK = 128, STAGES = 3; };
 template <> struct Tile<256> { static constexpr int BK = 64, STAGES = 2; };
+
+// The head dim the pipeline runs at: hd 80 pads to 128 (see the header).
+template <int HD> __host__ __device__ constexpr int padded() {
+    return HD == 80 ? 128 : HD;
+}
 
 template <int HD> constexpr int smem_bytes() {
     return BQ * HD * 2 + 2 * Tile<HD>::STAGES * Tile<HD>::BK * HD * 2 +
@@ -190,6 +205,8 @@ __device__ __forceinline__ Item work_item(int w, int S, int T_len, int H, int B,
     return it;
 }
 
+// HD is the inputs' head dim; HP, the pipeline's (padded<HD>), sizes the
+// tiles, the stages and O's accumulator.
 template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -198,9 +215,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
                 int S, int T_len, int H, int Kv, int causal, int window,
                 float scale_log2) {
-    constexpr int BK = Tile<HD>::BK, STAGES = Tile<HD>::STAGES;
-    constexpr int CHUNKS = HD / 64;
-    constexpr uint32_t Q_BYTES = BQ * HD * 2, KV_BYTES = BK * HD * 2;
+    constexpr int HP = padded<HD>();
+    constexpr int BK = Tile<HP>::BK, STAGES = Tile<HP>::STAGES;
+    constexpr int CHUNKS = HP / 64;
+    constexpr uint32_t Q_BYTES = BQ * HP * 2, KV_BYTES = BK * HP * 2;
     extern __shared__ uint8_t smem[];
     // [Q: CHUNKS x BQ rows][K: STAGES x CHUNKS x BK rows][V: the same]
     // [barriers: Q full, Q empty; K full, V full, K empty, V empty, STAGES
@@ -286,13 +304,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         // K-major; O += P V steps 16 keys (16 rows), V MN-major with 8 keys
         // 1024 bytes apart and 64-column chunks BK rows apart
         const uint64_t q_desc = desc_sw128(sQ + wg * 64 * ROW_BYTES, 16, 8 * ROW_BYTES);
-        RowState<HD> st;
+        RowState<HP> st;
         st.col = 2 * (lane % 4);
         auto s_product = [&](float (&s)[BK / 2], int stage) {
             const uint64_t k_desc =
                 desc_sw128(sK + stage * KV_BYTES, 16, 8 * ROW_BYTES);
 #pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk)
+            for (int kk = 0; kk < HD / 16; ++kk)   // hd 80: 5 of HP's 8
                 wgmma_ss(s, q_desc + (((kk / 4) * BQ * ROW_BYTES + (kk % 4) * 32) >> 4),
                          k_desc + (((kk / 4) * BK * ROW_BYTES + (kk % 4) * 32) >> 4),
                          kk > 0);
@@ -319,7 +337,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int row_hi = min(row0 + 63, S - 1);
             st.ra = row0 + 16 * warp + lane / 4;         // this thread's: ra, ra + 8
 #pragma unroll
-            for (int i = 0; i < HD / 2; ++i) st.acc[i] = 0.f;
+            for (int i = 0; i < HP / 2; ++i) st.acc[i] = 0.f;
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
                 st.m[i] = -INFINITY;
@@ -372,7 +390,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 fence_regs(s);
                 release(k_empty + 8 * stage);
                 if (hi == lo + 1) release(q_empty);   // Q's last use here
-                softmax_tile<HD, BK>(s, st, alpha, edge(lo), (item.kt_first + lo) * BK,
+                softmax_tile<HP, BK>(s, st, alpha, edge(lo), (item.kt_first + lo) * BK,
                                      T_len, causal, window, scale_log2);
 #pragma unroll
                 for (int i = 0; i < BK / 4; ++i) pk[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
@@ -388,7 +406,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     wgmma_fence();
                     s_product(sn, stage);
 #pragma unroll
-                    for (int i = 0; i < HD / 8; ++i) {
+                    for (int i = 0; i < HP / 8; ++i) {
                         st.acc[4 * i] *= alpha[0];
                         st.acc[4 * i + 1] *= alpha[0];
                         st.acc[4 * i + 2] *= alpha[1];
@@ -401,7 +419,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     fence_regs(sn);
                     release(k_empty + 8 * stage);
                     if (t == hi - 1) release(q_empty);   // Q's last use here
-                    softmax_tile<HD, BK>(sn, st, alpha, edge(t), (item.kt_first + t) * BK,
+                    softmax_tile<HP, BK>(sn, st, alpha, edge(t), (item.kt_first + t) * BK,
                                          T_len, causal, window, scale_log2);
                     wgmma_wait<0>();
                     fence_regs(st.acc);
@@ -413,7 +431,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 // the last tile's P V
                 mbar_wait(v_full + 8 * stage, parity_of(hi - 1));
 #pragma unroll
-                for (int i = 0; i < HD / 8; ++i) {
+                for (int i = 0; i < HP / 8; ++i) {
                     st.acc[4 * i] *= alpha[0];
                     st.acc[4 * i + 1] *= alpha[0];
                     st.acc[4 * i + 2] *= alpha[1];
@@ -452,6 +470,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const float inv = rcp(fmaxf(l, 1e-20f));
                 __nv_bfloat16* dst =
                     o + (((size_t)item.b * S + row) * H + item.h) * HD + st.col;
+                // the first HD columns (hd 80: of the pipeline's 128)
 #pragma unroll
                 for (int c = 0; c < HD / 8; ++c)
                     *reinterpret_cast<uint32_t*>(dst + 8 * c) = pack_bf16(
@@ -474,14 +493,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
     // block must start with all that the consumers and the producer take
     if (attr.numRegs * THREADS < 256 * CONSUMER_REGS + 128 * PRODUCER_REGS)
         return (int)cudaErrorInvalidConfiguration;
-    constexpr int smem = smem_bytes<HD>();
+    constexpr int HP = padded<HD>();
+    constexpr int smem = smem_bytes<HP>();
     err = cudaFuncSetAttribute(flash_tc_kernel<HD, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     alignas(64) CUtensorMap mq, mk, mv;
+    // the maps' hd extent is HD: at hd 80 a box's columns 80-127 come as 0
     if (!encode(fn, &mq, q, B, S, H, HD, BQ) ||
-        !encode(fn, &mk, k, B, T_len, Kv, HD, Tile<HD>::BK) ||
-        !encode(fn, &mv, v, B, T_len, Kv, HD, Tile<HD>::BK))
+        !encode(fn, &mk, k, B, T_len, Kv, HD, Tile<HP>::BK) ||
+        !encode(fn, &mv, v, B, T_len, Kv, HD, Tile<HP>::BK))
         return (int)cudaErrorInvalidValue;
     // persistent: one block an SM, each looping over its share of the items
     int device, sms;
@@ -502,7 +523,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
 
 // The registers a thread, dynamic shared memory and local memory (spills)
 // of the kernel at head dim `hd`, as the runtime reports them: the serving
-// instance, or with `lse` the training instance (hd 64 and 128).
+// instance (hd 64, 80, 128, 256), or with `lse` the training instance (hd
+// 64 and 128).
 extern "C" int pnp_flash_attention_tc_info(int32_t hd, int32_t lse,
                                            int32_t* registers,
                                            int32_t* shared_bytes,
@@ -517,6 +539,10 @@ extern "C" int pnp_flash_attention_tc_info(int32_t hd, int32_t lse,
         case 129:
             err = cudaFuncGetAttributes(&attr, flash_tc_kernel<64, true>);
             *shared_bytes = smem_bytes<64>();
+            break;
+        case 160:
+            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<80, false>);
+            *shared_bytes = smem_bytes<128>();
             break;
         case 256:
             err = cudaFuncGetAttributes(&attr, flash_tc_kernel<128, false>);
@@ -539,7 +565,7 @@ extern "C" int pnp_flash_attention_tc_info(int32_t hd, int32_t lse,
 }
 
 // q: (B, S, H, hd); k, v: (B, T, Kv, hd); out: (B, S, H, hd); bfloat16,
-// contiguous, each starting on a 16-byte boundary. hd in {64, 128, 256};
+// contiguous, each starting on a 16-byte boundary. hd in {64, 80, 128, 256};
 // H % Kv == 0; window 0 for none. Launches on `stream` and returns
 // cudaGetLastError() (or the error that kept it from launching).
 extern "C" int pnp_flash_attention_tc_fwd(const void* q, const void* k,
@@ -556,6 +582,7 @@ extern "C" int pnp_flash_attention_tc_fwd(const void* q, const void* k,
     const cudaStream_t st = (cudaStream_t)stream;
     switch (hd) {
         case 64: return launch<64>(q, k, v, out, B, S, T, H, Kv, causal, window, st);
+        case 80: return launch<80>(q, k, v, out, B, S, T, H, Kv, causal, window, st);
         case 128: return launch<128>(q, k, v, out, B, S, T, H, Kv, causal, window, st);
         case 256: return launch<256>(q, k, v, out, B, S, T, H, Kv, causal, window, st);
         default: return (int)cudaErrorInvalidValue;

@@ -6,7 +6,7 @@ the attention forward with an online softmax, float32 inside, causal by
 absolute position, optionally within a local window. Both map each query
 head to its KV head by index (GQA and MQA) and mask ragged S and T
 themselves. ``csrc/flash_attention_tc.cu`` runs bfloat16 at head dims 64,
-128 and 256 on the tensor cores (``flash_attention_tc``);
+80, 128 and 256 on the tensor cores (``flash_attention_tc``);
 ``csrc/flash_attention.cu`` runs everything else (float32, and head dims
 16 and 32) on the CUDA cores. ``kernel_for`` is the rule, by dtype and
 head dim alone; there is no fallback from one kernel to the other.
@@ -44,7 +44,7 @@ lse_launches = 0
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel ``flash_attention_cuda`` launches: "tensor_core" for
-    bfloat16 at head dims 64, 128 and 256, "cuda_core" for the rest."""
+    bfloat16 at head dims 64, 80, 128 and 256, "cuda_core" for the rest."""
     if dtype == torch.bfloat16 and head_dim in flash_attention_tc.HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
@@ -63,8 +63,9 @@ def train_kernels_for(dtype: torch.dtype, head_dim: int) -> str:
     raise TypeError(
         f"flash attention with grad: no training instance for {dtype} at "
         f"head dim {head_dim} (float32 at {TRAIN_HEAD_DIMS}, bfloat16 at "
-        f"{flash_attention_tc.TRAIN_HEAD_DIMS}; bfloat16 at head dim 256: "
-        "ROADMAP.md §1, training the hybrid and ssm families)")
+        f"{flash_attention_tc.TRAIN_HEAD_DIMS}; bfloat16 at head dims 80 "
+        "and 256: ROADMAP.md §1, item 4, training the hybrid, ssm, moe, "
+        "encdec and vlm families)")
 
 
 def tile(head_dim: int) -> dict:

@@ -1,5 +1,6 @@
 """Binding of the hand-written tensor-core flash-attention kernel
-(``csrc/flash_attention_tc.cu``) for bfloat16 at head dims 64, 128 and 256.
+(``csrc/flash_attention_tc.cu``) for bfloat16 at head dims 64, 80, 128 and
+256 (80 runs the hd-128 pipeline on zero-filled columns).
 
 It computes what ``flash_attention.flash_attention_cuda_core`` computes, the
 function of the reference's Pallas flash kernel, with both products on
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.kernels import native
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 # the training instance (with the row log-sum-exp), as the backward's
 TRAIN_HEAD_DIMS = (64, 128)
 

@@ -7,16 +7,28 @@ cache, on one card.
       --reduced 0 --batch 8 --prompt-len 2048 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --reduced 0 --batch 8 --prompt-len 4096
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --reduced 0 --batch 8 --prompt-len 2048 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+      --reduced 0 --batch 8 --prompt-len 416 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-11b --reduced 0 --batch 8 --prompt-len 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced 1
 
-Weights are random, drawn from a ``torch.Generator(seed)`` on the device
-one tensor at a time (a float32 draw, then the model's dtype), so the
-16.1 GB of rwkv6-7b in bf16 never exist as float32 at once; prompt tokens
-come from a CPU generator of the same seed, so a seed gives the same
-prompt on every device. The hand-written kernels carry the layers:
-flash attention in every attention layer's prefill (with recurrentgemma's
-local window), WKV-6 in every RWKV-6 layer's prefill and decode, the
-decay scan in every RG-LRU layer's prefill. Without a card the entry
+Every config of ``configs/`` serves (``qwen3-8b``, ``stablelm-1.6b``,
+``stablelm-3b`` and ``arctic-480b`` too; arctic's 960 GB of bf16 weights
+fit no card at full width). Weights are random, drawn from a
+``torch.Generator(seed)`` on the device one tensor at a time (a float32
+draw, then the model's dtype), so the 16.1 GB of rwkv6-7b in bf16 never
+exist as float32 at once; prompt tokens, and the stubbed encoders'
+outputs that whisper's and the VLM's prefill take (``audio_frames``,
+``image_embeds``: normal draws, cast to the model's dtype), come from a
+CPU generator of the same seed, so a seed gives the same inputs on every
+device. The hand-written kernels carry the layers: flash attention in
+every attention layer's prefill (with recurrentgemma's local window; the
+encoder's and every cross-attention not causal, the cross-attention at
+every decode step too), WKV-6 in every RWKV-6 layer's prefill and decode,
+the decay scan in every RG-LRU layer's prefill. Without a card the entry
 point raises unless ``--device cpu`` is given, which runs the plain
 PyTorch versions.
 """
@@ -53,7 +65,8 @@ def _sync(device: torch.device) -> None:
 def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
           device: DeviceLike = None, seed: int = 0,
           params: Optional[dict] = None) -> ServeResult:
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (with
+    random frames or image embeddings for encdec and vlm models), then
     decode ``new_tokens`` tokens greedily (the first from the prefill)."""
     dev = resolve(device)
     if new_tokens < 1:
@@ -63,11 +76,19 @@ def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
     if params is None:
         params = build_model(cfg).init(
             torch.Generator(device=dev).manual_seed(seed))
-    # drawn on the CPU, so a seed gives the same prompt on every device
-    prompt = torch.randint(
-        0, cfg.vocab_size, (batch, prompt_len),
-        generator=torch.Generator().manual_seed(seed),
-        dtype=torch.int32).to(dev)
+    # drawn on the CPU, so a seed gives the same inputs on every device
+    host = torch.Generator().manual_seed(seed)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                      generator=host, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        inputs["image_embeds"] = torch.randn(
+            (batch, cfg.n_img_tokens, cfg.d_vision), generator=host)
+    if cfg.family == "encdec":
+        inputs["audio_frames"] = torch.randn(
+            (batch, cfg.n_enc_tokens, cfg.d_model), generator=host)
+    inputs = {k: v.to(dev, getattr(torch, cfg.dtype))
+              if v.is_floating_point() else v.to(dev)
+              for k, v in inputs.items()}
 
     prefill = make_prefill_step(cfg, shape)
     decode = make_decode_step(cfg, shape)
@@ -75,7 +96,7 @@ def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    logits, cache = prefill(params, inputs, cache)
     tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1
                        ).to(torch.int32)[:, None]
     _sync(dev)

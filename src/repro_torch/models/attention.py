@@ -1,12 +1,15 @@
 """Attention: the port of ``repro/models/attention.py`` for training and
 serving.
 
-GQA + qk-norm + rope. ``self_attention`` (the training forward, no cache)
-and prefill run causal attention, optionally within a local window,
-through ``kernels.ops.flash_attention`` (the hand-written kernel on the
-card, whose backward is a hand-written kernel too); prefill also fills
-the KV cache; decode attends one token over
-the ring cache in plain PyTorch, as the reference does in plain jnp. One
+GQA + qk-norm + rope. ``self_attention`` (the training forward, no cache;
+the encoder's bidirectional attention) and prefill run causal attention,
+optionally within a local window, through ``kernels.ops.flash_attention``
+(the hand-written kernel on the card, whose backward is a hand-written
+kernel too); prefill also fills the KV cache; decode attends one token
+over the ring cache in plain PyTorch, as the reference does in plain jnp.
+``cross_attention`` (whisper's decoder, the VLM's image layers) sends its
+queries and the source's precomputed keys and values to the flash kernel
+too, not causal, at every prefill and decode step. One
 card has no sharding, so the reference's ``constrain`` calls are dropped.
 
 Unlike the reference, the cache is updated in place: prefill and decode
@@ -162,3 +165,25 @@ def decode_self_attention(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
     out = _gqa_scores_out(qs, kt, vt, mask)            # (B,Kv,G,1,hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, n_heads * head_dim)
     return out @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder / VLM image layers)
+# ---------------------------------------------------------------------------
+
+
+def cross_kv(p: Dict, src: torch.Tensor, n_kv: int, head_dim: int) -> Dict:
+    """The source's keys and values, (B, T, n_kv, hd) each."""
+    B, T, _ = src.shape
+    return {"k": (src @ p["wk"]).reshape(B, T, n_kv, head_dim),
+            "v": (src @ p["wv"]).reshape(B, T, n_kv, head_dim)}
+
+
+def cross_attention(p: Dict, x: torch.Tensor, kv: Dict, *, n_heads: int,
+                    n_kv: int, head_dim: int) -> torch.Tensor:
+    """x: (B, S, d) queries over ``kv`` precomputed from the source; every
+    query sees every source position."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+    out = ops.flash_attention(q, kv["k"], kv["v"], causal=False)
+    return out.reshape(B, S, n_heads * head_dim) @ p["wo"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,7 +49,9 @@ def split_rng(rng: Rng, n: int) -> List[Rng]:
     return list(random.split(rng, n))
 
 
-def _normal(rng: Rng, shape, std: float, dtype) -> torch.Tensor:
+def normal_init(rng: Rng, shape, std: float, dtype) -> torch.Tensor:
+    """N(0, std^2) of ``shape`` in ``dtype``: ``torch.randn`` on the
+    generator's device, or the reference's threefry draw from a key."""
     if isinstance(rng, torch.Generator):
         x = torch.randn(shape, generator=rng, device=rng.device,
                         dtype=torch.float32)
@@ -61,16 +64,16 @@ def _normal(rng: Rng, shape, std: float, dtype) -> torch.Tensor:
 
 
 def dense_init(rng: Rng, d_in: int, d_out: int, dtype) -> torch.Tensor:
-    return _normal(rng, (d_in, d_out), d_in ** -0.5, dtype)
+    return normal_init(rng, (d_in, d_out), d_in ** -0.5, dtype)
 
 
 def stacked_dense_init(rng: Rng, n: int, d_in: int, d_out: int,
                        dtype) -> torch.Tensor:
-    return _normal(rng, (n, d_in, d_out), d_in ** -0.5, dtype)
+    return normal_init(rng, (n, d_in, d_out), d_in ** -0.5, dtype)
 
 
 def embed_init(rng: Rng, vocab: int, d: int, dtype) -> torch.Tensor:
-    return _normal(rng, (vocab, d), 0.02, dtype)
+    return normal_init(rng, (vocab, d), 0.02, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +125,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) float32: sin, then cos, of pos / 10000^(2i/d). Built in numpy
+    float64 and cast, as the reference builds it, so the bits are its."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32)).to(device)
+
+
+def sinusoidal_pos_at(pos: int, d: int, device=None) -> torch.Tensor:
+    """(d,) float32: the embedding of one position, computed in float32
+    (the reference's decode step does so for its traced position)."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)
+    ang = torch.tensor(float(pos), dtype=torch.float32, device=device) \
+        / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""``build_model``: config -> model (the dense, hybrid and ssm families),
-and the per-shape config adaptation and cache length of
+"""``build_model``: config -> model (family dispatch), and the per-shape
+config adaptation, shape support and cache length of
 ``repro/models/model.py``."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 from repro_torch.configs.base import InputShape, ModelConfig
 
@@ -12,6 +13,12 @@ LONG_CONTEXT_WINDOW = 8192
 
 
 def build_model(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecModel
+        return EncDecModel(cfg)
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import VLMModel
+        return VLMModel(cfg)
     from repro_torch.models.transformer import Model
     return Model(cfg)
 
@@ -22,6 +29,16 @@ def adapt_for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
             and not cfg.window:
         return dataclasses.replace(cfg, window=LONG_CONTEXT_WINDOW)
     return cfg
+
+
+def supports_shape(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether ``cfg`` runs ``shape``, and why not: the encoder-decoder's
+    full-attention decoder has a context of a few hundred tokens by design
+    and skips long_500k."""
+    if shape.name == "long_500k" and cfg.family == "encdec":
+        return False, ("enc-dec full-attention decoder with by-design tiny "
+                       "context; skip noted in DESIGN.md §4")
+    return True, ""
 
 
 def cache_len_for(cfg: ModelConfig, shape: InputShape) -> int:

@@ -1,15 +1,20 @@
-"""Decoder-only model assembly: the dense, hybrid and ssm paths of
-``repro/models/transformer.py``, for serving, and the dense family's
-training forward and loss.
+"""Decoder-only model assembly: the port of
+``repro/models/transformer.py`` for serving the dense, moe, hybrid and ssm
+families, the dense family's training forward and loss, and the layers
+the encoder-decoder and VLM models (``encdec.py``, ``vlm.py``) build on.
 
 Params and caches keep the reference's layout, so weights converted from
 it drop in: ``groups/l{j}`` holds the j-th kind of layer of the repeating
-pattern, stacked over ``n_groups`` (dense: one ``attn``; ssm: one
-``rwkv``; recurrentgemma: ``rec, rec, attn``), and ``rest{r}`` the
-unstacked layers left after the last whole group. Layers run as a Python
-loop over the stack (the reference scans it). The moe, encdec and vlm
-families raise ``NotImplementedError``, and so do ``forward`` and ``loss``
-of the hybrid and ssm families, and ``init`` from a threefry key for them.
+pattern, stacked over ``n_groups`` (dense: one ``attn``; moe: one
+``moe``; ssm: one ``rwkv``; recurrentgemma: ``rec, rec, attn``), and
+``rest{r}`` the unstacked layers left after the last whole group. Layers
+run as a Python loop over the stack (the reference scans it); with
+``cfg.remat`` and grad on, each layer of the training forward is
+recomputed in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` does. Training is the dense family's
+alone: the teacher-forced ``forward`` of the moe family runs without grad
+(and raises with it), that of the hybrid and ssm families raises, and so
+does ``init`` from a threefry key for every family but the dense one.
 
     init(rng)                          -> params
     forward(params, batch)             -> (logits, aux)       # teacher-forced
@@ -27,10 +32,12 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (Rng, compute_dtype, cross_entropy,
@@ -39,13 +46,9 @@ from repro_torch.models.layers import (Rng, compute_dtype, cross_entropy,
 
 Params = Dict[str, Any]
 
-# where each family's port stands in ROADMAP.md
-_FAMILY_TODO = {
-    "moe": "ROADMAP.md §1, the remaining model families (models/moe.py)",
-    "encdec": "ROADMAP.md §1, the remaining model families "
-              "(models/encdec.py)",
-    "vlm": "ROADMAP.md §1, the remaining model families (models/vlm.py)",
-}
+# where training the families other than dense stands in ROADMAP.md
+TRAINING_TODO = ("ROADMAP.md §1, item 4: training the hybrid, ssm, moe, "
+                 "encdec and vlm families")
 
 
 def _zeros(shape, n_stack, device):
@@ -68,6 +71,38 @@ def _init_attn_layer(rng: Rng, cfg: ModelConfig, n_stack: int) -> Params:
         "attn": attn.init_attention(k1, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.resolved_head_dim,
                                     dt, cfg.qk_norm, n_stack),
+        "mlp": init_mlp(k2, cfg.d_model, cfg.d_ff, dt, n_stack),
+    }
+
+
+def _init_moe_layer(rng: Rng, cfg: ModelConfig, n_stack: int) -> Params:
+    dt = compute_dtype(cfg)
+    k1, k2, k3 = split_rng(rng, 3)
+    p = {
+        "ln1": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "ln2": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "attn": attn.init_attention(k1, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.resolved_head_dim,
+                                    dt, cfg.qk_norm, n_stack),
+        "moe": moe_mod.init_moe(k2, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                dt, n_stack),
+    }
+    if cfg.moe_dense_residual:
+        p["dense_mlp"] = init_mlp(k3, cfg.d_model, cfg.d_ff, dt, n_stack)
+    return p
+
+
+def _init_cross_layer(rng: Rng, cfg: ModelConfig, n_stack: int) -> Params:
+    """A gated cross-attention layer (llama-3.2-vision's image layers)."""
+    dt = compute_dtype(cfg)
+    k1, k2 = split_rng(rng, 2)
+    return {
+        "ln1": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "ln2": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "attn": attn.init_attention(k1, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.resolved_head_dim,
+                                    dt, False, n_stack),
+        "gate": _zeros((), n_stack, rng_device(rng)),
         "mlp": init_mlp(k2, cfg.d_model, cfg.d_ff, dt, n_stack),
     }
 
@@ -110,8 +145,10 @@ def _assign(dst: Dict, src: Dict) -> None:
             dst[key].copy_(val)
 
 
-def _apply_attn_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-                      mode: str, cache: Dict, pos: int) -> torch.Tensor:
+def _attend(lp: Params, x: torch.Tensor, cfg: ModelConfig, mode: str,
+            cache: Dict, pos: int) -> torch.Tensor:
+    """x plus the self-attention of an attn or moe layer, its keys and
+    values written into ``cache``."""
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
               head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
               qk_norm=cfg.qk_norm)
@@ -121,7 +158,40 @@ def _apply_attn_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
             lp["attn"], h, cache, window=cfg.window, **kw)
     else:
         out, _ = attn.decode_self_attention(lp["attn"], h, cache, pos, **kw)
-    x = x + out
+    return x + out
+
+
+def _apply_attn_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                      mode: str, cache: Dict, pos: int) -> torch.Tensor:
+    x = _attend(lp, x, cfg, mode, cache, pos)
+    return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]))
+
+
+def _moe_block(lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    """x plus the MoE FFN of the normed x (and, for Arctic, the dense FFN
+    beside it), and the router's aux loss."""
+    h2 = rms_norm(x, lp["ln2"])
+    ffn, aux = moe_mod.moe_ffn(lp["moe"], h2, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor)
+    if cfg.moe_dense_residual:
+        ffn = ffn + mlp(lp["dense_mlp"], h2)
+    return x + ffn, aux
+
+
+def _apply_moe_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                     mode: str, cache: Dict, pos: int) -> torch.Tensor:
+    return _moe_block(lp, _attend(lp, x, cfg, mode, cache, pos), cfg)[0]
+
+
+def _apply_cross_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                       kv: Dict) -> torch.Tensor:
+    """A gated cross-attention layer over precomputed keys and values: the
+    attention scaled by tanh(gate) in float32."""
+    h = rms_norm(x, lp["ln1"])
+    out = attn.cross_attention(lp["attn"], h, kv, n_heads=cfg.n_heads,
+                               n_kv=cfg.n_kv_heads,
+                               head_dim=cfg.resolved_head_dim)
+    x = x + (torch.tanh(lp["gate"]) * out.float()).to(x.dtype)
     return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]))
 
 
@@ -146,26 +216,55 @@ def _apply_rwkv_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + out2
 
 
-def _train_attn_layer(lp: Params, x: torch.Tensor,
-                      cfg: ModelConfig) -> torch.Tensor:
+def _train_attend(lp: Params, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
     h = rms_norm(x, lp["ln1"])
-    x = x + attn.self_attention(
+    return x + attn.self_attention(
         lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         window=cfg.window, qk_norm=cfg.qk_norm)
+
+
+def _train_attn_layer(lp: Params, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    x = _train_attend(lp, x, cfg)
     return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]))
 
 
-_SUBLAYER = {"attn": _apply_attn_layer, "rec": _apply_rec_layer,
-             "rwkv": _apply_rwkv_layer}
-_SUBINIT = {"attn": _init_attn_layer, "rec": _init_rec_layer,
-            "rwkv": _init_rwkv_layer}
+def _train_moe_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    return _moe_block(lp, _train_attend(lp, x, cfg), cfg)
+
+
+def _train_layer(fn, lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    """``fn(lp, x, cfg)``, a layer of the training forward. With
+    ``cfg.remat`` and grad on, its activations are not kept: the backward
+    runs it again (the flash forward launches twice a step)."""
+    if cfg.remat and torch.is_grad_enabled():
+        # the layers draw no random numbers: no RNG state to stash
+        return checkpoint(fn, lp, x, cfg, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(lp, x, cfg)
+
+
+def wants_grad(tree) -> bool:
+    """Grad mode is on and some tensor of ``tree`` requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(tree, dict):
+        return any(wants_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+_SUBLAYER = {"attn": _apply_attn_layer, "moe": _apply_moe_layer,
+             "rec": _apply_rec_layer, "rwkv": _apply_rwkv_layer}
+_SUBINIT = {"attn": _init_attn_layer, "moe": _init_moe_layer,
+            "rec": _init_rec_layer, "rwkv": _init_rwkv_layer}
 
 
 def _init_sub_cache(kind: str, cfg: ModelConfig, batch: int,
                     cache_len: int, device) -> Dict:
     dt = compute_dtype(cfg)
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         C = min(cache_len, cfg.window) if cfg.window else cache_len
         return attn.init_kv_cache(batch, C, cfg.n_kv_heads,
                                   cfg.resolved_head_dim, dt, device)
@@ -192,15 +291,13 @@ class Model:
     """Decoder-only LM over a (possibly heterogeneous) layer stack."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "hybrid", "ssm"):
-            raise NotImplementedError(
-                f"family {cfg.family!r}: "
-                f"{_FAMILY_TODO.get(cfg.family, 'ROADMAP.md §1')}")
         self.cfg = cfg
         if cfg.family == "hybrid" and cfg.pattern:
             pat = list(cfg.pattern)
         elif cfg.family == "ssm":
             pat = ["rwkv"]
+        elif cfg.family == "moe":
+            pat = ["moe"]
         else:
             pat = ["attn"]
         self.pattern = pat
@@ -208,10 +305,9 @@ class Model:
         self.n_rest = cfg.n_layers - self.n_groups * len(pat)
 
     def _dense_only(self, what: str) -> None:
-        if any(kind != "attn" for kind in self.pattern):
+        if self.cfg.family != "dense":
             raise NotImplementedError(
-                f"{what} of the {self.cfg.family} family: ROADMAP.md §1, "
-                "the training slice covers the dense family")
+                f"{what} of the {self.cfg.family} family: {TRAINING_TODO}")
 
     # -- init ---------------------------------------------------------------
     def init(self, rng: Rng) -> Params:
@@ -260,17 +356,23 @@ class Model:
     # -- train forward --------------------------------------------------------
     def forward(self, p: Params, batch: Dict):
         """Teacher-forced logits (B, S, padded vocab) and the router aux
-        (float32 0.0 for the dense family)."""
-        self._dense_only("the training forward")
+        summed over the layers (float32 0.0 for the dense family). The moe
+        family's runs without grad only."""
+        if self.cfg.family != "moe" or wants_grad(p):
+            self._dense_only("the training forward")
         cfg = self.cfg
         x = self._embed(p, batch["tokens"])
-        for i in range(self.n_groups):
-            gp = _index(p["groups"], i)
-            for j in range(len(self.pattern)):
-                x = _train_attn_layer(gp[f"l{j}"], x, cfg)
-        for r in range(self.n_rest):
-            x = _train_attn_layer(p[f"rest{r}"], x, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        layers = [_index(p["groups"], i)[f"l{j}"]
+                  for i in range(self.n_groups)
+                  for j in range(len(self.pattern))]
+        layers += [p[f"rest{r}"] for r in range(self.n_rest)]
+        for lp in layers:
+            if cfg.family == "moe":
+                x, a = _train_moe_layer(lp, x, cfg)
+                aux = aux + a
+            else:
+                x = _train_layer(_train_attn_layer, lp, x, cfg)
         return self._head(p, x), aux
 
     def loss(self, p: Params, batch: Dict):

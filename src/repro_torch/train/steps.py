@@ -197,6 +197,10 @@ def make_eval_step(cfg: ModelConfig):
 
 
 def make_prefill_step(cfg: ModelConfig, shape: InputShape):
+    """``(params, batch, cache) -> (logits of the last token, cache)``; the
+    batch carries ``tokens`` and, for the vlm and encdec families,
+    ``image_embeds`` or ``audio_frames``, whose cross keys and values the
+    prefill writes into the cache."""
     cfg = adapt_for_shape(cfg, shape)
     model = build_model(cfg)
 
@@ -221,6 +225,9 @@ def make_decode_step(cfg: ModelConfig, shape: InputShape):
 
 
 def make_init_cache(cfg: ModelConfig, shape: InputShape, device=None):
+    """The family's cache for ``shape``: ring KV caches or recurrent
+    states, plus the cross keys and values of the encdec and vlm
+    families."""
     cfg = adapt_for_shape(cfg, shape)
     model = build_model(cfg)
 

@@ -111,12 +111,13 @@ def test_flash_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
     (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 80, "tensor_core"), (torch.float32, 80, "cuda_core"),
     (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
     (torch.float32, 256, "cuda_core"), (torch.float32, 32, "cuda_core"),
     (torch.float16, 128, "cuda_core")])
 def test_flash_dispatch_rule(dtype, hd, kernel):
-    """bfloat16 at head dims 64, 128 and 256 takes the tensor-core kernel;
-    everything else the CUDA-core kernel (which refuses what it does not
+    """bfloat16 at head dims 64, 80, 128 and 256 takes the tensor-core
+    kernel; everything else the CUDA-core kernel (which refuses what it does not
     take, float16 among it)."""
     assert flash_attention.kernel_for(dtype, hd) == kernel
 

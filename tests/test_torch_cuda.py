@@ -6,7 +6,9 @@ port's dependencies::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import runpy
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -218,9 +220,9 @@ FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 def _flash_counters(dtype, hd):
     """(the launch counter of the kernel a call must take, the other's):
-    the tensor-core kernel for bf16 at head dims 64, 128 and 256, the
+    the tensor-core kernel for bf16 at head dims 64, 80, 128 and 256, the
     CUDA-core kernel for the rest."""
-    if dtype == torch.bfloat16 and hd in (64, 128, 256):
+    if dtype == torch.bfloat16 and hd in (64, 80, 128, 256):
         return flash_attention_tc, flash_attention
     return flash_attention, flash_attention_tc
 
@@ -349,6 +351,18 @@ FLASH_TC_EDGE_CASES = [
     (256, 10, 1, False, 0, 300, 1000),     # S != T, not causal
     (256, 10, 1, True, 1000, 1500, 1500),  # window 1000: edge mid-tile
     (64, 2, 2, True, 100, 333, 333),       # hd 64, window 100
+    # head dim 80 (stablelm-3b; the hd-128 pipeline on zero-filled columns)
+    (80, 1, 4, True, 0, 1000, 1000),       # causal, ragged, G 1
+    (80, 4, 2, False, 0, 129, 127),        # S and T one off a tile, G 4
+    (80, 1, 2, False, 0, 700, 1500),       # S != T both ways
+    (80, 1, 2, False, 0, 1500, 700),
+    (80, 2, 2, True, 64, 300, 300),        # a window
+    # the cross-attention's shapes: whisper's (16 heads, hd 64) at a decode
+    # step and at prefill, llama-3.2-vision's (32 over 8) at a decode step
+    (64, 1, 16, False, 0, 1, 1500),
+    (64, 1, 16, False, 0, 416, 1500),
+    (128, 4, 8, False, 0, 1, 1601),
+    (128, 7, 8, True, 0, 300, 300),        # G 7: arctic's 56 heads over 8
 ]
 
 
@@ -1102,3 +1116,32 @@ def test_a_gan_round_on_the_card_finds_the_cpus_winner(card):
     opt = {dev: run_optimal(wl._round_jash(), device=dev)
            for dev, wl in wls.items()}
     assert opt["cuda"].best_arg == opt["cpu"].best_arg
+
+
+def test_head_dim_80_runs_on_the_tensor_cores_and_trains_nowhere(card):
+    assert flash_attention.kernel_for(torch.bfloat16, 80) == "tensor_core"
+    q, k, v = _qkv(80, 2, 200, 200, torch.bfloat16, card, 80)
+    before, core = flash_attention_tc.launches, flash_attention.launches
+    ops.flash_attention(q, k, v, causal=True)
+    assert (flash_attention_tc.launches, flash_attention.launches) == \
+        (before + 1, core)
+    with pytest.raises(TypeError, match="no training instance"):
+        flash_attention.train_kernels_for(torch.bfloat16, 80)
+    with pytest.raises(TypeError, match="ROADMAP"):
+        ops.flash_attention(q.requires_grad_(True), k, v, causal=True)
+    # the CUDA-core kernel does not take it: no fallback
+    with pytest.raises(ValueError, match="head_dim 80"):
+        flash_attention.flash_attention_cuda_core(q.detach(), k, v,
+                                                  causal=True)
+
+
+def test_reduced_moe_expert_choices_on_the_card_equal_the_cpus(card):
+    """The reduced olmoe-1b-7b served on the card and on the CPU from the
+    same weights by chip_smoke.py's ``reduced_vs_cpu``: every router call
+    chooses the same experts (the router's product in float32, TF32 off),
+    and the tokens and logits agree."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    smoke = runpy.run_path(str(Path(__file__).parents[1] / "chip_smoke.py"))
+    out = smoke["reduced_vs_cpu"](card, "olmoe-1b-7b",
+                                  {"flash_attention": 2})
+    assert out["reduced_router_calls_with_equal_choices"] == 2 * 8

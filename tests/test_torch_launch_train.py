@@ -273,6 +273,7 @@ def test_flash_attention_training_kernels_by_dtype_and_head_dim():
     for hd in (64, 128):
         assert fa.train_kernels_for(torch.bfloat16, hd) == "tensor_core"
     for dtype, hd in ((torch.bfloat16, 256), (torch.bfloat16, 32),
+                      (torch.bfloat16, 80),
                       (torch.float16, 128), (torch.float32, 256)):
         with pytest.raises(TypeError, match="no training instance"):
             fa.train_kernels_for(dtype, hd)
