@@ -82,6 +82,12 @@ Prints one JSON line per probe, each with the card's name and power limit
      256, bf16) split by CUDA events into forward, backward and optimiser,
      with its peak device memory, with ``remat`` (the config's) and
      without, in turns (on, off, off, on).
+ 18. ssm_cut_rounding: chip_smoke.py's train_ssm cut (rwkv6-7b, 2 layers at
+     full width, batch 2 x 64, the trainer's threefry init and batch 0):
+     each leaf's gradient in bf16 and in float32 (the same bf16 weights,
+     widened; WKV-6 on its float32 instance), on the card and on the CPU,
+     and the worst leaf's relative L2 error of each pair: how far bf16
+     rounding alone moves the gradients the cut's check holds.
 The tile, unit and block sweeps build their variants of the port's sources
 with -D flags into their own libraries; the port's library keeps its one
 tile, unit and block.
@@ -515,6 +521,8 @@ def main() -> int:
         probe_flash_tc_head_shapes(gpu)
     if want("remat_step"):
         probe_remat_step(gpu)
+    if want("ssm_cut_rounding"):
+        probe_ssm_cut_rounding(gpu)
     return 0
 
 
@@ -523,7 +531,8 @@ PROBES = ("shared_loads", "fp32_issue", "wkv6_step_loop", "wkv6_per_step",
           "sha256_blocks", "flash_tiles", "flash_bwd_tiles",
           "flash_bwd_memory", "flash_tc_bwd_tiles", "merkle_units",
           "merkle_host",
-          "profiler_count", "flash_tc_head_shapes", "remat_step")
+          "profiler_count", "flash_tc_head_shapes", "remat_step",
+          "ssm_cut_rounding")
 
 
 def probe_flash_tc_head_shapes(gpu: str) -> None:
@@ -574,6 +583,51 @@ def probe_remat_step(gpu: str) -> None:
     emit({"probe": "remat_step", "gpu": gpu, "arch": cfg.name,
           "batch": "32 x 256 bf16", "config_remat": cfg.remat,
           "remat_on": splits[True], "remat_off": splits[False]})
+
+
+def probe_ssm_cut_rounding(gpu: str) -> None:
+    """The train_ssm cut's gradient (chip_smoke.py ``ssm_cut``,
+    ``_grads_by_path``) in bf16 and float32 on the card and the CPU, from
+    the state and batch its card trainer starts from; each pair's errors
+    by chip_smoke.py's ``_leaf_errs``."""
+    import dataclasses
+    import time
+    from chip_smoke import (CUT_BATCH, CUT_SEQ, _grads_by_path, _leaf_errs,
+                            ssm_cut)
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.steps import make_train_state
+    cut = ssm_cut(get_config("rwkv6-7b"))
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    batch = SyntheticTokenPipeline(cut, InputShape("cli", CUT_SEQ, CUT_BATCH,
+                                                   "train")).batch(0)
+    card = make_train_state(cut, random.key(0), "cuda").params
+    host = tree_map(lambda t: t.cpu(), card)
+    grads, secs = {}, {}
+    for name, cfg, params in (
+            ("card bf16", cut, card), ("cpu bf16", cut, host),
+            ("card float32", cut32, tree_map(lambda t: t.float(), card)),
+            ("cpu float32", cut32, tree_map(lambda t: t.float(), host))):
+        t = time.perf_counter()
+        grads[name] = _grads_by_path(cfg, params, batch)
+        secs[name] = time.perf_counter() - t
+    pairs = {}
+    for got, want in (("card bf16", "cpu bf16"), ("card float32",
+                                                  "cpu float32"),
+                      ("cpu bf16", "cpu float32"),
+                      ("card bf16", "card float32"),
+                      ("card bf16", "cpu float32")):
+        errs = _leaf_errs(grads[got], grads[want])
+        worst = max(errs, key=errs.get)
+        pairs[f"{got} vs {want}"] = {"worst_leaf": worst,
+                                     "worst": errs[worst], "by_leaf": errs}
+    emit({"probe": "ssm_cut_rounding", "gpu": gpu,
+          "cut": f"rwkv6-7b, {cut.n_layers} layers at full width, batch "
+                 f"{CUT_BATCH} x {CUT_SEQ}, threefry key 0, batch 0",
+          "seconds": secs, "pairs": pairs})
 
 
 def probe_profiler_count(gpu: str) -> None:

@@ -32,9 +32,17 @@ On one CUDA card it:
      log-sum-exp) bit-equal to its serving instance; and the bf16
      tensor-core backward within 2e-2 of its twin (scaled the same way)
      over 25 cases (hd 64 and 128, GQA ratios 1, 2 and 8, causal and
-     windowed, ragged, and the train CLI's call), bit-equal twice, with
+     windowed, ragged, and the train CLI's call) and at hd 256 (the
+     ``mma.sync`` backward: 10 heads over 1, windows shorter than S,
+     ragged, and recurrentgemma-2b's training call), bit-equal twice, with
      the tensor-core forward's training instance bit-equal to its serving
-     instance and its log-sum-exp within 1e-4 of the plain one's;
+     instance and its log-sum-exp within 1e-4 of the plain one's; the
+     decay scan's backward (S 0, 1 and at its 16-step edges, odd C, h0
+     and a final-state gradient, recurrentgemma's RG-LRU call) and WKV-6's
+     (float32 and bf16, S at its 8-step chunks' edges, K != V, s0 and a
+     final-state gradient, rwkv6-7b's call) within 1e-5 of their twins
+     (bf16 outputs 2e-2), bit-equal twice, and autograd through
+     ``ops.decay_scan`` and ``ops.wkv6`` on the card equal to them;
      then times kernels, plain versions and, for attention, PyTorch's SDPA
      as a yardstick, at the main paths' shapes (the two flash kernels and
      SDPA in turns; the CUDA-core kernel also in float32, its own path, at
@@ -55,7 +63,10 @@ On one CUDA card it:
      the train CLI's call, qwen3-0.6b's prefill shape and train_4k's row
      length (S = T = 4096), by events and from a graph, in turns with
      SDPA's bf16 forward and backward, the backward's peak memory no more
-     than SDPA's);
+     than SDPA's; the two recurrences' backwards at the training calls by
+     events and from a graph; the hd-256 training forward and backward at
+     recurrentgemma-2b's training call and at S = T = 4096 with its window,
+     in turns with SDPA's masked bf16 forward and backward);
   3. drives the mining path through ``Node`` at full size: a collatz jash
      over 2**20 args mined as a full block, then as an optimal block, then
      a Classic double-SHA-256 block over 2**20 nonces, each self-verified,
@@ -100,22 +111,42 @@ On one CUDA card it:
      GAN-inversion rounds over 2**10 latents, error below 1.0, equal
      digests and books; ``"gan"``). Before those parts, first in the
      phase: ``python -m repro_torch.launch.train --arch qwen3-0.6b`` at
-     its defaults (batch 32 x 256, full mode, 8 miners, bf16) for 8
-     blocks with a checkpoint every 4, as a process of its own: its
-     ledger verifies, each checkpoint's SHA-256 is its file's, an
-     in-process audit replay gives the CLI's digests and hashes with 56
+     its defaults (batch 32 x 256, full mode, 8 miners, bf16) for 4
+     blocks with a checkpoint after the 4th, as a process of its own: its
+     ledger verifies, each checkpoint's SHA-256 is its file's; then 2
+     ``--mode optimal`` blocks through the CLI, a second process (its
+     ledger verifies, every block optimal), while this process builds the
+     audit replay's trainer; the replay gives the CLI's digests and
+     hashes with 56
      training-instance forward (``remat``, the config's: each layer runs
      again in the backward) and 28 bf16 backward launches a step, the
-     step split by CUDA events, the loss falls, the last checkpoint loads to the replay's state digest;
-     2 ``--mode optimal`` blocks through the driver's ``main`` in this
-     process; and a 2-layer cut of qwen3-0.6b at full width on the card
+     step split by CUDA events, block 0's batch scores lower after the
+     blocks than before, the last checkpoint loads to the replay's state
+     digest; the threefry init drawn again on the card is the trainer's
+     bit for bit; an ES candidate at full width; and a 2-layer cut of
+     qwen3-0.6b at full width on the card
      against the CPU port's step from the same state: each leaf's
      gradient, the norm of each leaf's change in the first block and the
      losses (``"train_cli"``, readings and faults in a
-     ``"train_cli_cut"`` line); then
+     ``"train_cli_cut"`` line); then ``--arch recurrentgemma-2b`` at full
+     width and depth (26 layers, bf16, ``remat``) as a process of its own
+     at batch 16, 2 blocks and one checkpoint, replayed in this process
+     (digests and hashes equal, per step 36 decay-scan forward and 18
+     backward launches, 16 hd-256 training-instance forward and 8 hd-256
+     backward launches and no other kernel, the checkpoint loaded to the
+     replay's digest, the build split into init and review, the block into
+     step and host digest, the step split by CUDA events with its peak
+     memory), and a 3-layer cut against the CPU port leaf by leaf
+     (``"train_hybrid"``, ``"train_hybrid_cut"``); rwkv6-7b at full width
+     cut to 8 of its 32 layers through ``PoUWTrainer`` at batch 32 x 256,
+     2 blocks and an audit replay (16 WKV-6 forward and 8 backward
+     launches a step), and a 2-layer cut against the CPU port
+     (``"train_ssm"``, ``"train_ssm_cut"``); then
      pnpcoin-micro (hd 16) through ``ModelTrainingWorkload(**
      MICRO_KWARGS)``, 4 blocks on the card and the CPU port (losses
-     within 1e-5; ``"micro_train"``);
+     within 1e-5; ``"micro_train"``). In this phase a trainer whose step
+     an earlier build in this process reviewed skips the review; each
+     step's first review is timed (``"step_reviews"``);
   6. serves nine models at full width and depth through
      ``repro_torch.launch.serve`` (batch 8, 32 new tokens, bf16, random
      weights from a fixed seed): qwen3-0.6b (prompt 2048; flash attention),
@@ -209,8 +240,10 @@ F32_FLOPS_S = 67e12
 # (tiled, one thread a chain), flash's training instance (float32, with
 # the row log-sum-exp) 4 head dims, the flash backward 3 kernels (D, dK
 # and dV, dQ) x 4 head dims, the bf16 backward 2 kernels (D; dK, dV and
-# dQ) x 2 head dims
-N_KERNEL_INSTANCES = 9 + 1 + 10 + 4 + 2 + 2 + 2 + 4 + 12 + 4
+# dQ) x 2 head dims; then the tensor-core forward's training instance at
+# hd 256, the decay scan's backward, WKV-6's backward (2 dtypes) and its
+# sum of du, and the hd-256 bf16 backward's 3 kernels (D; dK and dV; dQ)
+N_KERNEL_INSTANCES = 9 + 1 + 10 + 4 + 2 + 2 + 2 + 4 + 12 + 4 + 1 + 1 + 3 + 3
 
 # serve shape: qwen3-0.6b, batch 8, prompt 2048, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -304,9 +337,10 @@ TC_LSE_TOL = 1e-4
 # the train CLI at its defaults (qwen3-0.6b at full width and depth,
 # batch 32 x 256, full mode, 8 miners, 1 microstep, lr 3e-4, warmup
 # max(blocks // 20, 5)) for CLI_BLOCKS blocks, a checkpoint every
-# CLI_CKPT_EVERY; then CLI_ES_BLOCKS optimal-mode blocks (pop 8, sigma
-# 0.02)
-CLI_BLOCKS, CLI_CKPT_EVERY, CLI_ES_BLOCKS = 8, 4, 2
+# CLI_CKPT_EVERY, then CLI_ES_BLOCKS blocks in optimal mode (ES). 4 blocks
+# and one checkpoint (8 and two before the recurrent families' training
+# parts joined phase 5): the script's time
+CLI_BLOCKS, CLI_CKPT_EVERY, CLI_ES_BLOCKS = 4, 4, 2
 # qwen3-0.6b cut to CUT_LAYERS layers at full width, batch CUT_BATCH x
 # CUT_SEQ, CUT_BLOCKS full-mode blocks on the card and on the CPU port,
 # from the same initial state: |card - CPU| <= CUT_LOSS_TOL |CPU| block by
@@ -316,13 +350,49 @@ CLI_BLOCKS, CLI_CKPT_EVERY, CLI_ES_BLOCKS = 8, 4, 2
 # (|a - b| / max(a, b)). Both devices round bf16
 # weights and activations at other places; the limits lie between the
 # sound readings and the faults the part measures beside them (block 1's
-# gradient, no change at all; PERF.md)
+# gradient, no change at all; PERF.md). The gradient's limit is the
+# part's: rwkv6-7b's bf16 gradients round far more than attention
+# models' (qwen3-0.6b's and recurrentgemma-2b's cuts read under 0.02).
+# On the H100 its cut read 0.094 against faults of 2.14-2.36, and
+# ``chip_probes.py ssm_cut_rounding`` reads the same cut's bf16 gradients
+# 0.36 from float32 ones on either device, where card and CPU agree
+# within 5e-5 in float32: the 0.094 is rounding
 CUT_LAYERS, CUT_BATCH, CUT_SEQ, CUT_BLOCKS = 2, 2, 64, 2
-CUT_LOSS_TOL, CUT_GRAD_TOL, CUT_UPDATE_TOL = 1e-3, 5e-2, 1e-2
+CUT_LOSS_TOL, CUT_UPDATE_TOL = 1e-3, 1e-2
+CUT_GRAD_TOL = {"train_cli": 5e-2, "train_hybrid": 5e-2, "train_ssm": 0.25}
 # pnpcoin-micro (hd 16) through ModelTrainingWorkload(**MICRO_KWARGS):
 # MICRO_BLOCKS blocks on the card and on the CPU port, |card - CPU| <=
 # MICRO_LOSS_TOL |CPU| block by block
 MICRO_BLOCKS, MICRO_LOSS_TOL = 4, 1e-5
+
+# the recurrent families' training calls: recurrentgemma-2b's RG-LRU (B, S,
+# lru) and local attention (B, S, H, Kv, hd) at HYBRID_BATCH x 256, its
+# attention also at S = T = 4096 (twice its window); rwkv6-7b's WKV-6 (B,
+# S, H, K, V) at SSM_BATCH x 256
+HYBRID_BATCH, HYBRID_BLOCKS = 16, 2
+SSM_BATCH, SSM_BLOCKS, SSM_LAYERS, SSM_CUT_LAYERS = 32, 2, 8, 2
+RG_WINDOW = 2048
+RG_TRAIN_LRU = (HYBRID_BATCH, 256, 2560)
+RG_TRAIN_ATTN = (HYBRID_BATCH, 256, 10, 1, 256)
+RG_4K_ATTN = (2, 4096, 10, 1, 256)
+RWKV_TRAIN_WKV = (SSM_BATCH, 256, 64, 64, 64)
+# the decay scan's backward against its twin, which runs its operations in
+# its order: max |kernel - twin| <= DECAY_BWD_TOL max |twin| (readings 0)
+DECAY_BWD_TOL = 1e-5
+# WKV-6's backward against its twin: float32 sums in other orders (the
+# kernel's shuffle trees, the twin's einsums); bf16 r, k, v give bf16 dr,
+# dk, dv, held after the twin's are rounded to bf16 as the kernel's are
+WKV_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+WKV_BWD_CHUNK = 8   # steps between the backward's checkpoints (its source)
+# the bf16 backward at head dim 256 (csrc/flash_attention_mma_bwd.cu):
+# (B, S, T, H, Kv, causal, window): recurrentgemma's 10 heads over 1 with
+# windows shorter than S, ragged lengths, S at and off its 64-row tiles,
+# S != T, one query, GQA 2, not causal; then RG_TRAIN_ATTN
+TC256_BWD_CASES = [(2, 200, 200, 10, 1, True, 64), (1, 300, 300, 10, 1, True,
+                                                     100),
+                   (1, 130, 130, 2, 2, True, 0), (1, 77, 77, 4, 1, False, 0),
+                   (2, 64, 64, 10, 1, True, 0), (1, 100, 170, 4, 2, False, 0),
+                   (3, 1, 1, 10, 1, True, 0), (1, 129, 129, 10, 1, True, 33)]
 
 MAIN_BITS = 20
 # seconds of quiet at each end of a profiled window
@@ -369,8 +439,14 @@ def kernel_name(mangled: str) -> str:
     """A readable name for a kernel's mangled symbol: the function and its
     template arguments."""
     import re
+    mma = re.search(r"flash_attention_mma_bwd_cu\w*?(tc_dot_kernel|"
+                    r"tc_dkv_kernel|tc_dq_kernel)", mangled)
+    if mma:
+        return f"flash_mma_bwd_{mma[1][3:]}<bf16,hd=256>"
     found = re.search(r"(sha256_rows_kernel|merkle_reduce_kernel|"
                       r"flash_fwd_kernel|flash_tc_kernel|wkv6_kernel|"
+                      r"wkv6_bwd_kernel|wkv6_du_kernel|"
+                      r"decay_scan_bwd_kernel|"
                       r"tc_bwd_kernel|tc_dot_kernel|"
                       r"dq_kernel|dkv_kernel|dot_kernel|"
                       r"decay_scan_per_chain_kernel|decay_scan_kernel)",
@@ -426,7 +502,7 @@ def flash_tc_resources() -> dict:
     from repro_torch.kernels import native
     lib, out = native.library(), {}
     for hd, lse in ((64, 0), (80, 0), (128, 0), (256, 0), (64, 1),
-                    (128, 1)):
+                    (128, 1), (256, 1)):
         regs, smem, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         rc = lib.pnp_flash_attention_tc_info(hd, lse, ctypes.byref(regs),
                                              ctypes.byref(smem),
@@ -473,6 +549,19 @@ def flash_tc_bwd_resources(ptxas: dict) -> dict:
                       f"bf16 backward {key} at hd {hd} spills nothing")
         out[f"hd={hd}"] = tile
     check(len(out["ptxas"]) == 4, f"4 bf16 backward instances: "
+                                  f"{out['ptxas']}")
+    return out
+
+
+def flash_mma_bwd_resources(ptxas: dict) -> dict:
+    """The hd-256 bf16 backward's kernels: ptxas's registers and spills, and
+    its tiles with the registers and local (spilled) bytes the runtime
+    reports."""
+    from repro_torch.kernels import flash_attention_mma_bwd
+    out = {"ptxas": {name: lines for name, lines in ptxas["kernels"].items()
+                     if name.startswith("flash_mma_bwd_")},
+           "hd=256": flash_attention_mma_bwd.tile()}
+    check(len(out["ptxas"]) == 3, f"3 hd-256 backward kernels: "
                                   f"{out['ptxas']}")
     return out
 
@@ -1436,9 +1525,12 @@ def _counts() -> dict:
     """The hash kernels' launch counts and the verifier's hashlib
     fallbacks since the last ``_zero_counts``."""
     from repro_torch.core import verify
-    from repro_torch.kernels import flash_attention
-    from repro_torch.kernels import flash_attention_tc
+    from repro_torch.kernels import (decay_scan, flash_attention,
+                                     flash_attention_tc, wkv6)
     counts = {name: mod.launches for name, mod in _launch_counters().items()}
+    # the recurrences' backward kernels, counted in their modules
+    counts["decay_scan_bwd"] = decay_scan.bwd_launches
+    counts["wkv6_bwd"] = wkv6.bwd_launches
     # of each flash kernel's launches, its training instance's
     counts["flash_attention_training"] = flash_attention.lse_launches
     counts["flash_attention_tc_training"] = flash_attention_tc.lse_launches
@@ -1448,9 +1540,11 @@ def _counts() -> dict:
 
 def _zero_counts() -> None:
     from repro_torch.core import verify
-    from repro_torch.kernels import flash_attention, flash_attention_tc
+    from repro_torch.kernels import (decay_scan, flash_attention,
+                                     flash_attention_tc, wkv6)
     for mod in _launch_counters().values():
         mod.launches = 0
+    decay_scan.bwd_launches = wkv6.bwd_launches = 0
     flash_attention.lse_launches = 0
     flash_attention_tc.lse_launches = 0
     verify.hashlib_fallbacks = 0
@@ -1806,21 +1900,26 @@ def quickstart_path() -> dict:
 ENTRY_OF = {"flash_attention": "flash_attention",
             "flash_attention_tc": "flash_attention",
             "flash_attention_bwd": "flash_attention",
-            "flash_attention_tc_bwd": "flash_attention", "wkv6": "wkv6",
-            "decay_scan": "decay_scan"}
+            "flash_attention_tc_bwd": "flash_attention",
+            "flash_attention_mma_bwd": "flash_attention", "wkv6": "wkv6",
+            "wkv6_bwd": "wkv6", "decay_scan": "decay_scan",
+            "decay_scan_bwd": "decay_scan"}
 
 
 def _launch_counters():
     from repro_torch.kernels import (decay_scan, flash_attention,
-                                     flash_attention_bwd, flash_attention_tc,
+                                     flash_attention_bwd,
+                                     flash_attention_mma_bwd,
+                                     flash_attention_tc,
                                      flash_attention_tc_bwd, merkle, sha256,
                                      wkv6)
     return {"sha256": sha256, "merkle": merkle,
             "flash_attention": flash_attention,
             "flash_attention_tc": flash_attention_tc,
             "flash_attention_bwd": flash_attention_bwd,
-            "flash_attention_tc_bwd": flash_attention_tc_bwd, "wkv6": wkv6,
-            "decay_scan": decay_scan}
+            "flash_attention_tc_bwd": flash_attention_tc_bwd,
+            "flash_attention_mma_bwd": flash_attention_mma_bwd,
+            "wkv6": wkv6, "decay_scan": decay_scan}
 
 
 def _by_entry(per_kernel: dict) -> dict:
@@ -2449,11 +2548,15 @@ def flash_tc_bwd_vs_plain(dev) -> dict:
     log-sum-exp and output gradient, in float32, cast to bf16) within
     ``TC_BWD_TOL`` times each tensor's largest entry (at least 1), and
     bit-equal to a second launch: ``TC_BWD_CASES`` at head dims 64 and 128
-    and the training step's call ``CLI_ATTN``. The forward's training
+    and the training step's call ``CLI_ATTN``; at head dim 256 (the
+    ``mma.sync`` backward, ``csrc/flash_attention_mma_bwd.cu``)
+    ``TC256_BWD_CASES`` and recurrentgemma-2b's training call
+    ``RG_TRAIN_ATTN`` with its window. The forward's training
     instance gives the output and log-sum-exp: its output bit-equal to the
     serving instance's, its log-sum-exp within ``TC_LSE_TOL`` of the plain
     one's on every row (-1e30 on a row that sees no key)."""
     import torch
+    from repro_torch.kernels import flash_attention_mma_bwd as fmb
     from repro_torch.kernels import flash_attention_tc as ft
     from repro_torch.kernels import flash_attention_tc_bwd as ftb
     from repro_torch.kernels import ref
@@ -2462,7 +2565,12 @@ def flash_tc_bwd_vs_plain(dev) -> dict:
              for B, S, T, H, Kv, causal, window in TC_BWD_CASES]
     B, S, H, Kv, hd = CLI_ATTN
     cases.append((B, S, S, H, Kv, hd, True, 0))
+    cases += [(B, S, T, H, Kv, 256, causal, window)
+              for B, S, T, H, Kv, causal, window in TC256_BWD_CASES]
+    B, S, H, Kv, hd = RG_TRAIN_ATTN
+    cases.append((B, S, S, H, Kv, hd, True, RG_WINDOW))
     worst = {"abs": 0.0, "rel": 0.0, "lse": 0.0}
+    by_hd = {}
     for B, S, T, H, Kv, hd, causal, window in cases:
         label = f"B={B} S={S} T={T} H={H} Kv={Kv} hd={hd} causal={causal} " \
                 f"window={window}"
@@ -2479,13 +2587,16 @@ def flash_tc_bwd_vs_plain(dev) -> dict:
                                                window=window)
         lse_err = float((lse - want_lse).abs().max())
         worst["lse"] = max(worst["lse"], lse_err)
+        mine = by_hd.setdefault(hd, {"abs": 0.0, "lse": 0.0, "cases": 0})
+        mine["lse"] = max(mine["lse"], lse_err)
+        mine["cases"] += 1
         check(torch.allclose(lse, want_lse, rtol=TC_LSE_TOL, atol=TC_LSE_TOL),
               f"tensor-core log-sum-exp vs plain ({lse_err}), {label}")
         do = torch.randn(o.shape, generator=gen, device=dev).to(torch.bfloat16)
-        got = ftb.flash_attention_tc_bwd_cuda(q, k, v, o, lse, do,
-                                              causal=causal, window=window)
-        again = ftb.flash_attention_tc_bwd_cuda(q, k, v, o, lse, do,
-                                                causal=causal, window=window)
+        bwd = fmb.flash_attention_mma_bwd_cuda if hd == 256 else \
+            ftb.flash_attention_tc_bwd_cuda
+        got = bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        again = bwd(q, k, v, o, lse, do, causal=causal, window=window)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"bf16 backward: two launches equal, {label}")
         want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
@@ -2496,6 +2607,7 @@ def flash_tc_bwd_vs_plain(dev) -> dict:
             scale = max(1.0, float(w.abs().max()))
             worst["abs"] = max(worst["abs"], err)
             worst["rel"] = max(worst["rel"], err / scale)
+            mine["abs"] = max(mine["abs"], err)
             check(err <= TC_BWD_TOL * scale,
                   f"bf16 backward vs plain ({err}, scale {scale}), {label}")
         del q, k, v, o, lse, do, got, again, want, want_lse
@@ -2505,7 +2617,7 @@ def flash_tc_bwd_vs_plain(dev) -> dict:
                          "max(1, max |twin|), each of dQ, dK, dV; "
                          f"log-sum-exp within {TC_LSE_TOL}",
             "max_abs_err": worst["abs"], "max_err_over_scale": worst["rel"],
-            "lse_max_abs_err": worst["lse"]}
+            "lse_max_abs_err": worst["lse"], "by_head_dim": by_hd}
 
 
 def flash_tc_bwd_times(dev) -> dict:
@@ -2618,6 +2730,316 @@ def flash_tc_bwd_times(dev) -> dict:
     return out
 
 
+def decay_bwd_vs_plain(dev) -> dict:
+    """The decay-scan backward kernel (``csrc/decay_scan_bwd.cu``) against
+    its plain twin ``ref.decay_scan_bwd_ref`` on the forward kernel's h:
+    within ``DECAY_BWD_TOL`` of each tensor's largest entry (the twin runs
+    the kernel's operations in its order, so the readings are 0) and
+    bit-equal to a second launch; S in {0, 1} and at the edges of its 16
+    steps of loads, odd C, with and without h0 and a final-state gradient,
+    and recurrentgemma-2b's training call ``RG_TRAIN_LRU``; then autograd
+    through ``ops.decay_scan`` (the ``DecayScan`` Function) against the
+    twin."""
+    import torch
+    from repro_torch.kernels import decay_scan, ops, ref
+    gen = torch.Generator(device=dev).manual_seed(20272)
+    cases = [(2, s, c, h0, last) for s in (0, 1, 15, 16, 17, 37)
+             for c in (1, 33, 130) for h0 in (False, True)
+             for last in (False, True)]
+    cases.append((*RG_TRAIN_LRU, False, False))
+    cases.append((*RG_TRAIN_LRU, True, True))
+    worst = 0.0
+    for B, S, C, with_h0, with_last in cases:
+        what = f"decay scan backward B={B} S={S} C={C} h0={with_h0} " \
+               f"dh_last={with_last}"
+        a = torch.rand((B, S, C), generator=gen, device=dev) * 0.7 + 0.3
+        b = torch.randn((B, S, C), generator=gen, device=dev)
+        h0 = torch.randn((B, C), generator=gen, device=dev) if with_h0 \
+            else None
+        h, _ = decay_scan.decay_scan_cuda(a, b, h0)
+        dh = torch.randn((B, S, C), generator=gen, device=dev)
+        dl = torch.randn((B, C), generator=gen, device=dev) if with_last \
+            else None
+        got = decay_scan.decay_scan_bwd_cuda(a, h, dh, dl, h0)
+        again = decay_scan.decay_scan_bwd_cuda(a, h, dh, dl, h0)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              what + ": two launches equal")
+        want = ref.decay_scan_bwd_ref(a, h, dh, dl, h0)[:2]
+        for g, w in zip(got, want):
+            if S:
+                err = float((g - w).abs().max() / w.abs().max().clamp(
+                    min=1e-30))
+                worst = max(worst, err)
+                check(err <= DECAY_BWD_TOL, f"{what} vs plain ({err})")
+        del a, b, h, dh, got, again, want
+    a = (torch.rand((3, 40, 24), generator=gen, device=dev) * 0.7
+         + 0.3).requires_grad_(True)
+    b = torch.randn((3, 40, 24), generator=gen, device=dev,
+                    requires_grad=True)
+    before = decay_scan.bwd_launches
+    h, h_last = ops.decay_scan(a, b)
+    dh = torch.randn_like(h)
+    da, db = torch.autograd.grad((h * dh).sum() + h_last.sum(), (a, b))
+    want = ref.decay_scan_bwd_ref(a.detach(), h.detach(), dh,
+                                  torch.ones_like(h_last))
+    check(decay_scan.bwd_launches == before + 1
+          and torch.equal(da, want[0]) and torch.equal(db, want[1]),
+          "autograd through ops.decay_scan on the card: one backward "
+          "launch, the twin's bits")
+    return {"cases": len(cases) + 1, "max_err_over_scale": worst,
+            "tolerance": f"max |kernel - twin| <= {DECAY_BWD_TOL} max "
+                         "|twin|, each of da, db",
+            "max_abs_err": worst, "equal_bits_launch_to_launch": True}
+
+
+def wkv_bwd_vs_plain(dev) -> dict:
+    """The WKV-6 backward (``csrc/wkv6_bwd.cu``) against its plain twin
+    ``ref.wkv6_bwd_ref``: each of dr, dk, dv, dw, du within
+    ``WKV_BWD_TOL[dtype]`` of the tensor's largest entry (bf16 r, k, v:
+    the twin's dr, dk, dv rounded to bf16 as the kernel's are), bit-equal
+    to a second launch; S in {1} and at the edges of its 8-step chunks,
+    head sizes below 64, K != V and odd, float32 and bf16, with and
+    without s0 and a final-state gradient, and rwkv6-7b's training call
+    ``RWKV_TRAIN_WKV`` (bf16); then autograd through ``ops.wkv6`` (the
+    ``WKV6`` Function) against the twin."""
+    import torch
+    from repro_torch.kernels import ops, ref, wkv6
+    gen = torch.Generator(device=dev).manual_seed(20273)
+    L = WKV_BWD_CHUNK
+    shapes = [(2, 1, 2, 64, 64), (1, L - 1, 3, 64, 64), (2, L, 2, 32, 32),
+              (1, L + 1, 2, 64, 48), (2, 2 * L + 3, 3, 5, 7),
+              (1, 40, 2, 63, 64), (1, 33, 1, 64, 1), (4, 64, 8, 64, 64)]
+    cases = [(shape, dtype, start, last)
+             for shape in shapes for dtype in (torch.float32, torch.bfloat16)
+             for start, last in ((False, False), (True, True))]
+    cases.append((RWKV_TRAIN_WKV, torch.bfloat16, False, False))
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for shape, dtype, with_s0, with_last in cases:
+        name = str(dtype).split(".")[1]
+        what = f"wkv6 backward {shape} {name} s0={with_s0} " \
+               f"ds_final={with_last}"
+        r, k, v, w, u, s0 = _wkv_inputs(shape, dtype, gen, dev)
+        s0 = s0 if with_s0 else None
+        B, S, H, K, V = shape
+        do = torch.randn((B, S, H, V), generator=gen, device=dev)
+        dsf = torch.randn((B, H, K, V), generator=gen, device=dev) \
+            if with_last else None
+        got = wkv6.wkv6_bwd_cuda(r, k, v, w, u, do, dsf, s0)
+        again = wkv6.wkv6_bwd_cuda(r, k, v, w, u, do, dsf, s0)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              what + ": two launches equal")
+        want = ref.wkv6_bwd_ref(r, k, v, w, u, do, dsf, s0)
+        for part, g, wnt in zip("r k v w u".split(), got, want):
+            check(g.dtype == (dtype if part in "rkv" else torch.float32),
+                  f"{what}: d{part} dtype")
+            wnt = wnt.to(g.dtype).float()
+            err = float((g.float() - wnt).abs().max()
+                        / wnt.abs().max().clamp(min=1e-30))
+            worst[name] = max(worst[name], err)
+            check(err <= WKV_BWD_TOL[name], f"{what}: d{part} vs plain "
+                                            f"({err})")
+        del r, k, v, w, u, do, got, again, want
+        torch.cuda.empty_cache()
+    leaves = [x.requires_grad_(True) for x in _wkv_inputs(
+        (2, 20, 2, 16, 16), torch.float32, gen, dev)[:5]]
+    before = wkv6.bwd_launches
+    out, s_final = ops.wkv6(*leaves)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad((out * do).sum() + s_final.sum(), leaves)
+    want = wkv6.wkv6_bwd_cuda(*(x.detach() for x in leaves), do,
+                              torch.ones_like(s_final))
+    check(wkv6.bwd_launches == before + 2
+          and all(torch.equal(g, w) for g, w in zip(got, want)),
+          "autograd through ops.wkv6 on the card: the backward's bits")
+    return {"cases": len(cases) + 1, "max_err_over_scale": worst,
+            "max_abs_err": max(worst.values()),
+            "tolerance": f"max |kernel - twin in the kernel's dtype| <= "
+                         f"{WKV_BWD_TOL} max |twin|, each of dr, dk, dv, "
+                         "dw, du",
+            "resources": wkv6.bwd_resources(),
+            "equal_bits_launch_to_launch": True}
+
+
+def recurrent_bwd_times(dev) -> dict:
+    """The two recurrences' backward kernels at the training paths' calls
+    (the decay scan's at ``RG_TRAIN_LRU``, WKV-6's at ``RWKV_TRAIN_WKV``
+    with bf16 r, k, v), by events (10 calls in a row) and from a CUDA
+    graph, their plain twins, and each bound: A moves a, h, dh in and da,
+    db out (float32) at 3.35 TB/s against 3 flops an element; B needs 12
+    float32 flops per (k, v) and step (the state recomputed, dr, dk, dv,
+    dw and dS's update, two each) at 67 TFLOP/s against r, k, v, w, do in
+    and dr, dk, dv, dw out once."""
+    import torch
+    from repro_torch.kernels import decay_scan, ref, wkv6
+    gen = torch.Generator(device=dev).manual_seed(20274)
+    out = {}
+    B, S, C = RG_TRAIN_LRU
+    a = torch.rand((B, S, C), generator=gen, device=dev) * 0.7 + 0.3
+    b = torch.randn((B, S, C), generator=gen, device=dev)
+    h, _ = decay_scan.decay_scan_cuda(a, b)
+    dh = torch.randn_like(h)
+
+    def decay_bwd():
+        return decay_scan.decay_scan_bwd_cuda(a, h, dh)
+    ms, dev_ms = cuda_ms(decay_bwd), graph_ms(decay_bwd)
+    plain_ms = cuda_ms(lambda: ref.decay_scan_bwd_ref(a, h, dh), reps=3,
+                       rounds=1)
+    nbytes, flops = 4 * 5 * a.numel(), 3 * a.numel()
+    t_b, t_o = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    out["decay_scan_bwd"] = {
+        "shape": f"B={B} S={S} C={C} float32 (recurrentgemma-2b's RG-LRU "
+                 "in a training step at batch 16)",
+        "ms": ms, "device_ms_from_graph": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_o) * 1e3,
+        "bound_by": "bytes" if t_b > t_o else "operations",
+        "library_ms": None,
+        "bound_arithmetic": f"max({nbytes:.4g} B / 3.35e12, {flops:.4g} "
+                            f"flops / 67e12) = max({t_b * 1e3:.4g}, "
+                            f"{t_o * 1e3:.4g}) ms",
+        "share_of_bound_from_graph": max(t_b, t_o) * 1e3 / dev_ms}
+    del a, b, h, dh
+
+    B, S, H, K, V = RWKV_TRAIN_WKV
+    r, k, v, w, u, _ = _wkv_inputs(RWKV_TRAIN_WKV, torch.bfloat16, gen, dev)
+    do = torch.randn((B, S, H, V), generator=gen, device=dev)
+
+    def wkv_bwd():
+        return wkv6.wkv6_bwd_cuda(r, k, v, w, u, do)
+    ms = cuda_ms(wkv_bwd, reps=3)
+    dev_ms = graph_ms(wkv_bwd, reps=3)
+    fwd_ms = cuda_ms(lambda: wkv6.wkv6_cuda(r, k, v, w, u), reps=3)
+    plain_ms = cuda_ms(lambda: ref.wkv6_bwd_ref(r, k, v, w, u, do), reps=1,
+                       rounds=1)
+    nbytes = 2 * 2 * (r.numel() + k.numel() + v.numel()) \
+        + 4 * (2 * w.numel() + do.numel()) + 4 * 2 * u.numel()
+    flops = 12 * B * S * H * K * V
+    t_b, t_o = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    out["wkv6_bwd"] = {
+        "shape": f"B={B} S={S} H={H} K=V={K}, r/k/v bf16, w and do float32 "
+                 "(rwkv6-7b's time mix in a training step at batch 32)",
+        "ms": ms, "device_ms_from_graph": dev_ms, "plain_ms": plain_ms,
+        "forward_kernel_ms": fwd_ms,
+        "bound_ms": max(t_b, t_o) * 1e3,
+        "bound_by": "bytes" if t_b > t_o else "operations",
+        "library_ms": None,
+        "bound_arithmetic": f"max({nbytes:.4g} B / 3.35e12, {flops:.4g} "
+                            f"flops / 67e12) = max({t_b * 1e3:.4g}, "
+                            f"{t_o * 1e3:.4g}) ms",
+        "share_of_bound_from_graph": max(t_b, t_o) * 1e3 / dev_ms,
+        "resources": wkv6.bwd_resources()}
+    return out
+
+
+def flash_hd256_train_times(dev) -> dict:
+    """The tensor-core forward's training instance (C) and the hd-256
+    backward (D, ``csrc/flash_attention_mma_bwd.cu``) at recurrentgemma-2b's
+    training call ``RG_TRAIN_ATTN`` and at S = T = 4096
+    (``RG_4K_ATTN``), causal with its window of 2048: by events in turns
+    with SDPA's bf16 forward and backward on the same inputs (the band as
+    a boolean mask, K and V repeated to the 10 heads, leaf tensors so only
+    the attention runs), and from a CUDA graph; the plain twins; the
+    bounds (the products over the band's pairs: 2 for the forward and 5
+    for the backward, 2 hd flops a pair at 989 TFLOP/s, against each input
+    read and output written once); each backward's peak device memory over
+    its inputs beside SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_mma_bwd as fmb
+    from repro_torch.kernels import flash_attention_tc as ft
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(20275)
+    out = {}
+    window = RG_WINDOW
+    for name, (B, S, H, Kv, hd) in (
+            ("recurrentgemma-2b train", RG_TRAIN_ATTN),
+            ("recurrentgemma-2b S=T=4096", RG_4K_ATTN)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for shape in
+                   ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+        o, lse = ft.flash_attention_tc_lse_cuda(q, k, v, causal=True,
+                                                window=window)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        pairs = int(band.sum())
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for x in (k, v))
+        sd_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+        dot = do.transpose(1, 2).contiguous()
+
+        def forward():
+            return ft.flash_attention_tc_lse_cuda(q, k, v, causal=True,
+                                                  window=window)
+
+        def backward():
+            return fmb.flash_attention_mma_bwd_cuda(q, k, v, o, lse, do,
+                                                    causal=True,
+                                                    window=window)
+
+        def sdpa_forward():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=band)
+
+        def sdpa_backward():
+            return torch.autograd.grad(sd_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        peak = {"kernel": peak_extra_bytes(backward),
+                "sdpa": peak_extra_bytes(sdpa_backward)}
+        dq_sdpa = sdpa_backward()[0].transpose(1, 2).float()
+        sdpa_err = float((dq_sdpa - backward()[0].float()).abs().max())
+        check(sdpa_err <= TC_BWD_TOL * max(1.0, float(dq_sdpa.abs().max())),
+              f"SDPA's bf16 backward agrees with the hd-256 kernel's dQ at "
+              f"{name} ({sdpa_err})")
+        del dq_sdpa
+        fwd = in_turns({"kernel": forward, "sdpa": sdpa_forward,
+                        "serving_instance": lambda: ft.flash_attention_tc_cuda(
+                            q, k, v, causal=True, window=window)})
+        bwd = in_turns({"kernel": backward, "sdpa": sdpa_backward})
+        fwd_dev, bwd_dev = graph_ms(forward), graph_ms(backward)
+        plain_bwd = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal=True, window=window), reps=1,
+            rounds=1)
+        plain_fwd = cuda_ms(lambda: ref.flash_attention_lse_ref(
+            q, k, v, causal=True, window=window), reps=1, rounds=1)
+        b_ops = 5 * 2 * hd * pairs * B * H / BF16_FLOPS_S
+        b_bytes = (2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()) \
+            / HBM_BYTES_S
+        f_ops = 2 * 2 * hd * pairs * B * H / BF16_FLOPS_S
+        f_bytes = (2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()) \
+            / HBM_BYTES_S
+        shape = f"B={B} S=T={S} H={H} Kv={Kv} hd={hd} bf16 causal " \
+                f"window={window}"
+        out[name] = {
+            "forward": {
+                "shape": shape, "ms": fwd["kernel"],
+                "device_ms_from_graph": fwd_dev, "plain_ms": plain_fwd,
+                "serving_instance_ms": fwd["serving_instance"],
+                "bound_ms": max(f_ops, f_bytes) * 1e3,
+                "bound_by": "operations" if f_ops > f_bytes else "bytes",
+                "library_ms": fwd["sdpa"],
+                "library": "scaled_dot_product_attention, boolean band "
+                           "mask, K and V repeated"},
+            "backward": {
+                "shape": shape, "ms": bwd["kernel"],
+                "device_ms_from_graph": bwd_dev, "plain_ms": plain_bwd,
+                "bound_ms": max(b_ops, b_bytes) * 1e3,
+                "bound_by": "operations" if b_ops > b_bytes else "bytes",
+                "library_ms": bwd["sdpa"],
+                "library": "scaled_dot_product_attention backward, boolean "
+                           "band mask, K and V repeated",
+                "bound_arithmetic": f"max(5 x 2 x {hd} x {pairs} pairs x "
+                                    f"{B * H} / 989e12, {b_bytes * 3.35e12:.4g}"
+                                    f" B / 3.35e12) ms",
+                "sdpa_dq_max_abs_err": sdpa_err,
+                "peak_bytes_over_inputs": peak}}
+        del q, k, v, o, lse, do, qt, kt, vt, sd_out, dot, band
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_step_split(dev) -> dict:
     """One pnpcoin-demo training step (the workload's: batch 4 of 32
     tokens, float32) split by CUDA events into the forward (loss), the
@@ -2643,12 +3065,17 @@ def step_split(cfg, state, batch, hp, reps: int = 5) -> dict:
     events into the forward (loss), the backward (autograd, through the
     flash backward) and the optimiser (the schedule and AdamW, ``hp``),
     with the peak device memory of a step; the median of ``reps`` steps
-    after one warm-up."""
+    after one warm-up. ``state`` may be a one-element list holding it,
+    which the split empties, so that no caller keeps the first state
+    alive beside the steps' (at full width two states do not fit the
+    card)."""
     import torch
     from repro_torch.models.model import build_model
     from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
     from repro_torch.optim.schedule import cosine_schedule
     from repro_torch.train import steps
+    if isinstance(state, list):
+        state = state.pop()
     model = build_model(cfg)
     split = {"forward": [], "backward": [], "optimiser": []}
     torch.cuda.synchronize()
@@ -2674,6 +3101,9 @@ def step_split(cfg, state, batch, hp, reps: int = 5) -> dict:
         ev[3].record()
         ev[3].synchronize()
         state = steps.TrainState(new, opt)
+        # nothing of this step outlives it (at full width the gradients
+        # held into the next step's backward would not fit)
+        del params, loss, grads, new, opt
         if rep:
             for i, key in enumerate(split):
                 split[key].append(ev[i].elapsed_time(ev[i + 1]))
@@ -3262,58 +3692,79 @@ def gan_path(dev) -> dict:
                                    "flash_attention_bwd")}}
 
 
-def _train_cli(args, out_dir) -> dict:
+def _train_cli(args, out_dir, meanwhile=None) -> dict:
     """``python -m repro_torch.launch.train`` with ``args`` as a process of
     its own on the card, its files under ``out_dir``: exit code, seconds,
-    the printed blocks and the last line."""
+    the printed blocks and the last line. ``meanwhile()``, if given, runs
+    in this process while the CLI's runs (work that needs no card: the
+    CLI's process holds it); its result comes back under
+    ``"meanwhile"``."""
     import os
     import re
+    import tempfile
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *args, "--out",
-         str(out_dir)], capture_output=True, text=True, timeout=900,
-        cwd=ROOT, env=env)
+    # its output into files, not pipes, which nobody reads while
+    # ``meanwhile`` runs
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *args,
+             "--out", str(out_dir)], stdout=out, stderr=err, text=True,
+            cwd=ROOT, env=env)
+        try:
+            done = meanwhile() if meanwhile is not None else None
+            proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
     seconds = time.perf_counter() - t
     check(proc.returncode == 0, f"train CLI {args}: exit {proc.returncode}, "
-          f"{proc.stderr[-3000:]}")
-    lines = proc.stdout.splitlines()
+          f"{stderr[-3000:]}")
+    lines = stdout.splitlines()
     blocks = {int(h): float(loss) for h, loss in re.findall(
-        r"block +(\d+) mode=\w+ loss=([-0-9.naif]+)", proc.stdout)}
+        r"block +(\d+) mode=\w+ loss=([-0-9.naif]+)", stdout)}
     check(lines and lines[-1].startswith("done:")
           and lines[-1].endswith("chain verified."),
           f"train CLI {args}: {lines[-3:]}")
     return {"args": args, "seconds": seconds, "printed": lines,
-            "losses_printed": blocks}
+            "losses_printed": blocks, "meanwhile": done}
 
 
-def train_cli_path(dev) -> dict:
+def train_cli_path(dev, during_cli=()) -> dict:
     """``python -m repro_torch.launch.train --arch qwen3-0.6b`` at the
     reference driver's defaults (batch 32 x 256, full mode, 8 miners) on
     the card, ``CLI_BLOCKS`` blocks with a checkpoint every
     ``CLI_CKPT_EVERY``, as its own process: the chain verifies
-    (``ledger.json``), each checkpoint's SHA-256 equals its file's. Then in
-    this process a fresh trainer of the same run audits the chain by
-    replay, as a verifier does (the trainer build timed, its threefry init
-    drawn again and timed alone): every block's state digest and hash,
+    (``ledger.json``), each checkpoint's SHA-256 equals its file's. Then
+    ``CLI_ES_BLOCKS`` optimal-mode blocks through the CLI (``--mode
+    optimal``), a second process: its ledger verifies, every block
+    optimal. While it runs, this process builds a fresh trainer of the
+    first run (the build timed, the step's review timed within it), which
+    then audits that chain by replay, as a verifier does: every block's
+    state digest and hash,
     the last block's included, equal the CLI's (across processes, so the
-    card's products repeat bit for bit), the loss falls from the first
-    block, at the config's ``remat``: 56 training-instance forward (each
+    card's products repeat bit for bit), block 0's batch scores lower
+    after the blocks than before them, at the config's ``remat``: 56 training-instance forward (each
     layer's again in the backward) and 28 backward launches a step on the
     tensor cores and no other kernel, and the last checkpoint
     loads to the replay's ``state_digest``; a step split by CUDA events,
     with its peak device memory (``chip_probes.py remat_step`` times it
-    without remat too); peak device memory. Then
-    ``CLI_ES_BLOCKS`` optimal-mode blocks through the driver's ``main`` in
-    this process (a process of its own would pay its start and imports
-    again; an ES candidate's time measured here), and qwen3-0.6b cut to ``CUT_LAYERS``
+    without remat too); peak device memory; the threefry init drawn again
+    on the card (timed alone) is the trainer's bit for bit; an ES
+    candidate's time at full width. And qwen3-0.6b cut to ``CUT_LAYERS``
     layers at full width: a card trainer's blocks against the CPU port's
-    training step from the same initial state (``cut_vs_cpu``)."""
-    import contextlib
+    training step from the same initial state (``cut_on_card``; its card
+    half runs first, its CPU half while the CLI's process runs, and with
+    it ``during_cli``, other parts' work that fits beside the CLI's 32 GB
+    on the card: the CLI's seconds are taken on a shared card)."""
     import dataclasses
-    import io
     import shutil
 
     import numpy as np
@@ -3324,7 +3775,6 @@ def train_cli_path(dev) -> dict:
     from repro_torch.convert import ledger_from_json
     from repro_torch.core import es as es_mod
     from repro_torch.core.pow_train import PoUWTrainer
-    from repro_torch.launch import train as ttrain
     from repro_torch.train import checkpoint
     from repro_torch.train.steps import (TrainHparams, make_train_state,
                                          params_digest)
@@ -3332,10 +3782,22 @@ def train_cli_path(dev) -> dict:
     B, S = 32, 256
     out_dir = ROOT / "build" / "train_cli"
     shutil.rmtree(out_dir, ignore_errors=True)
+    # the cut's card half first; its CPU half runs while the CLI's process
+    # holds the card
+    t = time.perf_counter()
+    cut_cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    cut_ctx = cut_on_card(cut_cfg, lambda config: _cut_trainer(config, dev))
+    torch.cuda.empty_cache()
     try:
         cli = _train_cli(["--arch", "qwen3-0.6b", "--blocks",
                           str(CLI_BLOCKS), "--ckpt-every",
-                          str(CLI_CKPT_EVERY)], out_dir / "full")
+                          str(CLI_CKPT_EVERY)], out_dir / "full",
+                         meanwhile=lambda: [
+                             cut_on_cpu(cut_cfg, cut_ctx, "train_cli"),
+                             *(job() for job in during_cli)])
+        cut = cli.pop("meanwhile")[0]
+        cut["seconds"] = time.perf_counter() - t
+        del cut_ctx
         ledger = ledger_from_json((out_dir / "full" /
                                    "ledger.json").read_text())
         check(ledger.verify_chain() and ledger.height == CLI_BLOCKS,
@@ -3354,25 +3816,38 @@ def train_cli_path(dev) -> dict:
                           for ln in cli["printed"]),
                   f"train CLI: checkpoint {b}'s SHA-256 is its file's")
 
-        # the same run in this process: the replay
+        # the same run in this process: the replay, its trainer built while
+        # the CLI mines CLI_ES_BLOCKS blocks in optimal mode
         hp = TrainHparams(peak_lr=3e-4, warmup_steps=max(CLI_BLOCKS // 20, 5),
                           total_steps=CLI_BLOCKS)
 
-        def trainer(mode="full", config=cfg, batch=B, seq=S, device=dev,
-                    blocks=CLI_BLOCKS):
-            return PoUWTrainer(config, InputShape("cli", seq, batch, "train"),
-                               hp=dataclasses.replace(
-                                   hp, warmup_steps=max(blocks // 20, 5),
-                                   total_steps=blocks),
-                               mode=mode, n_miners=8, pop_size=8, sigma=0.02,
-                               device=device)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        tr = trainer()
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t
-        init_digest = params_digest(tr.state)
+        def build():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            review, _, restore = _timed_review_and_digest()
+            try:
+                t = time.perf_counter()
+                tr = PoUWTrainer(cfg, InputShape("cli", S, B, "train"),
+                                 hp=hp, mode="full", n_miners=8, pop_size=8,
+                                 sigma=0.02, device=dev)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t
+            finally:
+                restore()
+            return tr, build_s, sum(review), params_digest(tr.state)
+        es = _train_cli(["--arch", "qwen3-0.6b", "--blocks",
+                         str(CLI_ES_BLOCKS), "--mode", "optimal",
+                         "--ckpt-every", "0"], out_dir / "optimal",
+                        meanwhile=build)
+        tr, build_s, review_s, init_digest = es.pop("meanwhile")
+        es_ledger = ledger_from_json((out_dir / "optimal" /
+                                      "ledger.json").read_text())
+        check(es_ledger.verify_chain() and es_ledger.height == CLI_ES_BLOCKS
+              and all(b.mode == "optimal" for b in es_ledger.blocks)
+              and len(es["losses_printed"]) == CLI_ES_BLOCKS
+              and all(np.isfinite(list(es["losses_printed"].values()))),
+              "train CLI --mode optimal: its ledger verifies, every block "
+              "optimal")
         _zero_counts()
         block_s = []
         for _ in range(CLI_BLOCKS):
@@ -3401,9 +3876,16 @@ def train_cli_path(dev) -> dict:
               f"train_cli: the audit replay in this process gives the CLI's "
               f"digests and block hashes, block {CLI_BLOCKS - 1}'s included")
         losses = [r.loss for r in tr.history]
-        check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+        # the training moves the loss: block 0's batch scores lower after
+        # the blocks than before them (each block's loss is on its own
+        # batch, and 4 blocks of warm-up steps move it less than the
+        # batches differ)
+        loss_after = float(tr._eval_step(tr.state.params,
+                                         tr.pipeline.batch(0)))
+        check(all(np.isfinite(losses)) and loss_after < losses[0]
               and abs(cli["losses_printed"][0] - losses[0]) < 1e-4,
-              f"train_cli: the loss falls from the first block: {losses}")
+              f"train_cli: block 0's batch scores {loss_after} after "
+              f"{CLI_BLOCKS} blocks, below its {losses[0]} before: {losses}")
         t = time.perf_counter()
         loaded, digest = checkpoint.load_checkpoint(
             str(out_dir / "full" / f"ckpt_{CLI_BLOCKS}.npz"), tr.state)
@@ -3441,32 +3923,9 @@ def train_cli_path(dev) -> dict:
                     f"instance, {es_counts}")
         del tr, cand, batch
         torch.cuda.empty_cache()
-
-        # the driver in this process: CLI_ES_BLOCKS optimal-mode blocks
-        t = time.perf_counter()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            ttrain.main(["--arch", "qwen3-0.6b", "--blocks",
-                         str(CLI_ES_BLOCKS), "--mode", "optimal",
-                         "--ckpt-every", "0", "--out",
-                         str(out_dir / "optimal")])
-        es = {"seconds": time.perf_counter() - t,
-              "printed": buf.getvalue().splitlines()}
-        es_ledger = ledger_from_json((out_dir / "optimal" /
-                                      "ledger.json").read_text())
-        check(es_ledger.verify_chain() and es_ledger.height == CLI_ES_BLOCKS
-              and all(b.mode == "optimal" for b in es_ledger.blocks)
-              and es["printed"][-1].endswith("chain verified."),
-              "train CLI --mode optimal: its ledger verifies")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-
-    t = time.perf_counter()
-    cut = cut_vs_cpu(dataclasses.replace(cfg, n_layers=CUT_LAYERS),
-                     lambda config: trainer(config=config, batch=CUT_BATCH,
-                                            seq=CUT_SEQ, blocks=CUT_BLOCKS))
-    cut["seconds"] = time.perf_counter() - t
     return {"phase": "workloads", "part": "train_cli",
             "config": f"qwen3-0.6b ({cfg.n_layers} layers, d_model "
                       f"{cfg.d_model}, {cfg.n_heads} heads over "
@@ -3477,12 +3936,15 @@ def train_cli_path(dev) -> dict:
             "attention_call": dict(zip("B S H Kv hd".split(), CLI_ATTN)),
             "cli_seconds": cli["seconds"], "cli_printed": cli["printed"],
             "checkpoints": ckpts, "checkpoint_load_s": load_s,
-            "trainer_build_s": build_s, "init_on_card_s": init_s,
+            "trainer_build_s": build_s, "review_s": review_s,
+            "init_and_rest_s": build_s - review_s, "init_on_card_s": init_s,
             "block_s": block_s,
-            "losses": losses, "step_split": split,
+            "losses": losses, "block_0_batch_loss_after": loss_after,
+            "step_split": split,
             "peak_device_mb": peak / 1e6, "counts": counts,
-            "es_candidate_s": candidate_s, "es_main_seconds": es["seconds"],
-            "es_printed": es["printed"], "cut": cut,
+            "es_candidate_s": candidate_s,
+            "es_cli_seconds": es["seconds"], "es_printed": es["printed"],
+            "cut": cut,
             "launches": {
                 "flash_attention_tc": counts["flash_attention_tc"]
                 + es_counts["flash_attention_tc"],
@@ -3519,23 +3981,27 @@ def _grads_by_path(cfg, params, batch) -> dict:
             zip(_flatten_with_path(live), grads)}
 
 
-def cut_vs_cpu(cut, make_trainer) -> dict:
-    """qwen3-0.6b cut to a few layers at full width: a card trainer from
+def cut_on_card(cut, make_trainer) -> dict:
+    """A model cut to a few layers at full width (qwen3-0.6b for
+    ``train_cli``, recurrentgemma-2b and rwkv6-7b for ``train_hybrid`` and
+    ``train_ssm``): a card trainer from
     ``make_trainer(cut)`` against the CPU port's training step from the
-    same initial state (copied from the card: a host draw of its 165M
+    same initial state (copied from the card: a host draw of a cut's
     weights takes minutes) on the same batches. Held leaf by leaf, not
     only by the loss, which one step at this init moves by ~1e-3 of
     itself: each leaf's gradient at the initial state on block 0's batch
-    (``CUT_GRAD_TOL``), the norm of each leaf's change in block 0
+    (``CUT_GRAD_TOL[part]``), the norm of each leaf's change in block 0
     (``CUT_UPDATE_TOL``; a bf16 weight whose update sits at a rounding
     edge moves by an ulp on one device and not on the other, so the change
     is held by its norm) and each block's loss (``CUT_LOSS_TOL``). Beside the readings, what
     the same measure gives for two faults: the gradient of block 1's batch
-    in place of block 0's, and a block that changes nothing."""
+    in place of block 0's, and a block that changes nothing. This is the card's
+    half, which frees the card when done; the CPU's half
+    (``cut_on_cpu``) needs only the host, so a part may run it while a
+    process of its own holds the card."""
     import torch
     from repro_torch.optim.adamw import AdamWState, tree_map
-    from repro_torch.train.steps import (TrainState, _flatten_with_path,
-                                         make_train_step)
+    from repro_torch.train.steps import TrainState, _flatten_with_path
 
     def host(tree):
         return tree_map(lambda t: t.detach().cpu().clone(), tree)
@@ -3544,20 +4010,36 @@ def cut_vs_cpu(cut, make_trainer) -> dict:
     tr = make_trainer(cut)
     build_s = time.perf_counter() - t
     batches = [tr.pipeline.batch(b) for b in range(CUT_BLOCKS)]
-    step = make_train_step(cut, tr.hp)
     start = TrainState(params=host(tr.state.params),
                        opt=AdamWState(*(host(x) for x in tr.state.opt)))
     p0 = dict(_flatten_with_path(start.params))
     t = time.perf_counter()
     card_grads = _grads_by_path(cut, tr.state.params, batches[0])
+    # the fault: block 1's batch in place of block 0's (on the card: a
+    # host backward at full width costs the script seconds)
+    wrong = _grads_by_path(cut, tr.state.params, batches[1])
     card = [tr.run_block().loss]
     p1 = dict(_flatten_with_path(host(tr.state.params)))
     card += [r.loss for r in tr.run(CUT_BLOCKS - 1)]
     torch.cuda.synchronize()
     cuda_s = time.perf_counter() - t
+    hp = tr.hp
     del tr
     torch.cuda.empty_cache()
+    return {"start": start, "batches": batches, "hp": hp, "p0": p0,
+            "p1": p1, "card": card, "card_grads": card_grads,
+            "wrong": wrong, "build_s": build_s, "cuda_s": cuda_s}
 
+
+def cut_on_cpu(cut, ctx: dict, part: str) -> dict:
+    """The CPU half of a cut's comparison, from ``cut_on_card``'s record: the CPU
+    port's gradient and steps from the same state, the comparison, its
+    line and its checks."""
+    import torch
+    from repro_torch.train.steps import _flatten_with_path, make_train_step
+    start, batches, p0 = ctx["start"], ctx["batches"], ctx["p0"]
+    card, card_grads, wrong = ctx["card"], ctx["card_grads"], ctx["wrong"]
+    step = make_train_step(cut, ctx["hp"])
     t = time.perf_counter()
     host_grads = _grads_by_path(cut, start.params, batches[0])
     cpu, state = [], start
@@ -3567,7 +4049,6 @@ def cut_vs_cpu(cut, make_trainer) -> dict:
         if b == 0:
             q1 = dict(_flatten_with_path(state.params))
     cpu_s = time.perf_counter() - t
-    wrong = _grads_by_path(cut, start.params, batches[1])
 
     def change_norms(p):
         return {k: float(torch.linalg.vector_norm(p[k].float()
@@ -3580,7 +4061,7 @@ def cut_vs_cpu(cut, make_trainer) -> dict:
                 if max(got[k], want[k]) else 0.0 for k in want}
 
     grad_errs = _leaf_errs(card_grads, host_grads)
-    card_change, cpu_change = change_norms(p1), change_norms(q1)
+    card_change, cpu_change = change_norms(ctx["p1"]), change_norms(q1)
     update_errs = norm_errs(card_change, cpu_change)
     loss_err = max(abs(x - y) / abs(y) for x, y in zip(card, cpu))
     # each fault measured as the check measures the card: its worst leaf
@@ -3596,24 +4077,406 @@ def cut_vs_cpu(cut, make_trainer) -> dict:
            "worst_leaf": {"grad": max(grad_errs.values()),
                           "change_norm": max(update_errs.values())},
            "faults_worst_leaf": controls,
-           "build_s": build_s, "cuda_s": cuda_s, "cpu_s": cpu_s}
-    emit({"phase": "workloads", "part": "train_cli_cut", **rec})
-    check(rec["worst_leaf"]["grad"] <= CUT_GRAD_TOL,
-          f"train_cli: the cut's gradients on the card within {CUT_GRAD_TOL} "
+           "build_s": ctx["build_s"], "cuda_s": ctx["cuda_s"], "cpu_s": cpu_s}
+    emit({"phase": "workloads", "part": f"{part}_cut", **rec})
+    grad_tol = CUT_GRAD_TOL[part]
+    check(rec["worst_leaf"]["grad"] <= grad_tol,
+          f"{part}: the cut's gradients on the card within {grad_tol} "
           f"of the CPU port's, leaf by leaf: {grad_errs}")
     check(rec["worst_leaf"]["change_norm"] <= CUT_UPDATE_TOL,
-          f"train_cli: the cut's block-0 change on the card within "
+          f"{part}: the cut's block-0 change on the card within "
           f"{CUT_UPDATE_TOL} of the CPU port's, leaf by leaf: {update_errs}")
-    check(loss_err <= CUT_LOSS_TOL, f"train_cli: the cut's card losses "
+    check(loss_err <= CUT_LOSS_TOL, f"{part}: the cut's card losses "
           f"{card} within {CUT_LOSS_TOL} of the CPU port's {cpu}")
-    check(controls["grad_of_block_1s_batch"] > CUT_GRAD_TOL
+    check(controls["grad_of_block_1s_batch"] > grad_tol
           and controls["update_left_out"] > CUT_UPDATE_TOL,
-          f"train_cli: the faults measured beside the cut exceed the "
+          f"{part}: the faults measured beside the cut exceed the "
           f"limits: {controls}")
     return {k: rec[k] for k in ("layers", "batch", "seq", "card_losses",
                                 "cpu_losses", "loss_rel_err", "worst_leaf",
                                 "faults_worst_leaf", "build_s", "cuda_s",
                                 "cpu_s")}
+
+
+def _timed_review_and_digest():
+    """Wrap the step's review (``TrainStepJash.validate``) and the block's
+    host state digest so each call appends its seconds; returns the two
+    lists and a function that restores both."""
+    from repro_torch.core import pow_train
+    review, digest = [], []
+    validate, light = pow_train.TrainStepJash.validate, \
+        pow_train._light_state_digest
+
+    def timed_validate(self, *a, **kw):
+        t = time.perf_counter()
+        out = validate(self, *a, **kw)
+        review.append(time.perf_counter() - t)
+        return out
+
+    def timed_digest(state):
+        t = time.perf_counter()
+        out = light(state)
+        digest.append(time.perf_counter() - t)
+        return out
+    pow_train.TrainStepJash.validate = timed_validate
+    pow_train._light_state_digest = timed_digest
+
+    def restore():
+        pow_train.TrainStepJash.validate = validate
+        pow_train._light_state_digest = light
+    return review, digest, restore
+
+
+def _review_each_step_once():
+    """Phase 5 builds many trainers of one step: a node's, an audit's, a
+    recovery's, a verifier's replay. Each build reviews the step
+    (``TrainStepJash.validate``: two exports on fake CPU tensors, 2-50 s
+    a build on the card's host), and every review of one step exports
+    the same two programs. For the script's time, a build in this process
+    whose step (its id, config and hparams, the state's and the batch's
+    shapes and dtypes) a build before it reviewed skips the review; the
+    first review of each step runs and is timed. Returns the record
+    (each step's first review in seconds, the reviews skipped) and a
+    function that restores the trainer."""
+    from repro_torch.core import pow_train
+    init = pow_train.PoUWTrainer.__init__
+    validate = pow_train.TrainStepJash.validate
+    record = {"first_reviews": [], "skipped": 0}
+    reviewed = set()
+    building = []
+
+    def signature(tree):
+        if isinstance(tree, dict):
+            return tuple((k, signature(v)) for k, v in sorted(tree.items()))
+        if isinstance(tree, tuple):
+            return tuple(signature(v) for v in tree)
+        return tuple(tree.shape), str(tree.dtype)
+
+    def trainer_init(self, *args, **kwargs):
+        building.append(self)
+        try:
+            init(self, *args, **kwargs)
+        finally:
+            building.pop()
+
+    def once(self, state, batch, **kwargs):
+        if not building:
+            return validate(self, state, batch, **kwargs)
+        tr = building[-1]
+        key = (self.source_id(), repr(tr.cfg), repr(tr.hp),
+               signature(state), signature(batch))
+        if key in reviewed:
+            record["skipped"] += 1
+            return None
+        t = time.perf_counter()
+        out = validate(self, state, batch, **kwargs)
+        reviewed.add(key)
+        record["first_reviews"].append({
+            "config": f"{tr.cfg.name}, {tr.cfg.n_layers} layers, "
+                      f"{tr.cfg.dtype}", "shape": repr(tr.shape),
+            "seconds": time.perf_counter() - t})
+        return out
+    pow_train.PoUWTrainer.__init__ = trainer_init
+    pow_train.TrainStepJash.validate = once
+
+    def restore():
+        pow_train.PoUWTrainer.__init__ = init
+        pow_train.TrainStepJash.validate = validate
+    return record, restore
+
+
+def _host_like(tree):
+    """A tree like ``tree`` (dicts and named tuples) of empty host tensors
+    of its leaves' dtypes: a template that loads a checkpoint to the
+    host."""
+    import torch
+    if isinstance(tree, tuple):
+        return type(tree)(*(_host_like(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: _host_like(v) for k, v in tree.items()}
+    return torch.empty(0, dtype=tree.dtype)
+
+
+def _recurrent_counts_check(counts, want, what) -> None:
+    """Every kernel's launches in ``counts`` are ``want``'s (0 where it does
+    not name one)."""
+    names = [k for k in counts if k not in ("hashlib_fallbacks",)]
+    got = {k: counts[k] for k in names}
+    full = {k: want.get(k, 0) for k in names}
+    check(got == full, f"{what}: launches {got}, expected {full}")
+
+
+def _train_recurrent(dev, cfg, batch, blocks, what, want_counts) -> dict:
+    """A ``PoUWTrainer`` of ``cfg`` (full mode, 8 miners, batch x 256, the
+    train CLI's hparams for ``blocks`` blocks) built on the card and run
+    ``blocks`` blocks, with its build split into the threefry init and the
+    step's review, each block's seconds with the host state digest's share,
+    the launch counts (checked against ``want_counts`` a block) and the
+    peak device memory. Returns the record and the trainer."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.pow_train import PoUWTrainer
+    from repro_torch.train.steps import TrainHparams
+    hp = TrainHparams(peak_lr=3e-4, warmup_steps=max(blocks // 20, 5),
+                      total_steps=blocks)
+    review, digest, restore = _timed_review_and_digest()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        tr = PoUWTrainer(cfg, InputShape("cli", 256, batch, "train"), hp=hp,
+                         mode="full", n_miners=8, pop_size=8, sigma=0.02,
+                         device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        _zero_counts()
+        block_s = []
+        for _ in range(blocks):
+            t = time.perf_counter()
+            tr.run_block()
+            torch.cuda.synchronize()
+            block_s.append(time.perf_counter() - t)
+        counts = _counts()
+    finally:
+        restore()
+    _recurrent_counts_check(counts, {k: n * blocks for k, n in
+                                     want_counts.items()}, what)
+    losses = [r.loss for r in tr.history]
+    check(all(math.isfinite(x) for x in losses), f"{what}: finite losses "
+                                                  f"{losses}")
+    rec = {"trainer_build_s": build_s, "review_s": sum(review),
+           "init_and_rest_s": build_s - sum(review), "block_s": block_s,
+           "host_digest_s": digest[-blocks:],
+           "host_digest_share": sum(digest[-blocks:]) / sum(block_s),
+           "losses": losses, "peak_device_mb":
+               torch.cuda.max_memory_allocated() / 1e6, "counts": counts,
+           "hparams": str(hp)}
+    return rec, tr
+
+
+def train_hybrid_path(dev, cut_ctx: dict, host_work=()) -> dict:
+    """``python -m repro_torch.launch.train --arch recurrentgemma-2b`` at
+    full width and depth (26 layers: 18 RG-LRU and 8 local-attention, d
+    2560, vocab 256,000, bf16 weights, float32 AdamW moments, ``remat`` as
+    configured) as a process of its own, at the driver's defaults but
+    ``--batch HYBRID_BATCH``, ``--blocks HYBRID_BLOCKS`` and one checkpoint
+    (``--ckpt-every HYBRID_BLOCKS``), cut for the card's memory and the
+    script's time: its ledger verifies and the checkpoint's SHA-256 is its
+    file's. Then in this process the same run again, a verifier's audit
+    replay: its build split into the threefry init and the step's review,
+    each block's state digest and hash equal the CLI's, each step's
+    launches (the decay scan's forward twice a RG-LRU layer with remat and
+    its backward once; the tensor-core forward's hd-256 training instance
+    twice an attention layer and the hd-256 backward once; no other
+    kernel), the block time with the host digest's share, the peak device
+    memory; the checkpoint loads (to the host) to the replay's state
+    digest (its params; the CLI printed the file's SHA-256 as its meta
+    holds it); a step split by CUDA events. Then recurrentgemma-2b cut to 3
+    layers (rec, rec, attn) at full width against the CPU port's step from
+    the same state, leaf by leaf (``cut_on_card``, ``cut_on_cpu``: its card
+    half, ``cut_ctx``, ran before, beside the qwen3 CLI; its CPU half runs
+    while this part's CLI process runs, and with it ``host_work``,
+    functions of other parts that need only the host)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import ledger_from_json
+    from repro_torch.train import checkpoint
+    from repro_torch.train.steps import params_digest
+    cfg = get_config("recurrentgemma-2b")
+    n_rec = sum(1 for i in range(cfg.n_layers)
+                if cfg.pattern[i % len(cfg.pattern)] == "rec")
+    n_attn = cfg.n_layers - n_rec
+    B, blocks = HYBRID_BATCH, HYBRID_BLOCKS
+    out_dir = ROOT / "build" / "train_hybrid"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # the cut's card half ran earlier (``cut_ctx``); its CPU half, and the
+    # CPU halves other parts left (``host_work``), run while the CLI's
+    # process holds the card
+    t = time.perf_counter()
+
+    def meanwhile():
+        out = cut_on_cpu(hybrid_cut(cfg), cut_ctx, "train_hybrid")
+        out["seconds"] = time.perf_counter() - t
+        return [out] + [job() for job in host_work]
+    try:
+        cli = _train_cli(["--arch", "recurrentgemma-2b", "--batch", str(B),
+                          "--blocks", str(blocks), "--ckpt-every",
+                          str(blocks)], out_dir, meanwhile=meanwhile)
+        cut, *others = cli.pop("meanwhile")
+        ledger = ledger_from_json((out_dir / "ledger.json").read_text())
+        check(ledger.verify_chain() and ledger.height == blocks,
+              "train_hybrid: the CLI's ledger.json verifies")
+        path = out_dir / f"ckpt_{blocks}.npz"
+        meta = json.loads(Path(str(path) + ".meta.json").read_text())
+        check(meta["block"] == blocks
+              and meta["ledger_tip"] == ledger.blocks[-1].block_hash
+              and any(f"sha256={meta['sha256'][:16]}" in ln
+                      for ln in cli["printed"]),
+              "train_hybrid: the checkpoint's meta names its block and tip")
+
+        want = {"decay_scan": 2 * n_rec if cfg.remat else n_rec,
+                "decay_scan_bwd": n_rec,
+                "flash_attention_tc": 2 * n_attn if cfg.remat else n_attn,
+                "flash_attention_tc_training":
+                    2 * n_attn if cfg.remat else n_attn,
+                "flash_attention_mma_bwd": n_attn}
+        run, tr = _train_recurrent(dev, cfg, B, blocks, "train_hybrid", want)
+        check([r.state_digest for r in tr.history]
+              == [blk.state_digest for blk in ledger.blocks]
+              and [r.block_hash for r in tr.history]
+              == [blk.block_hash for blk in ledger.blocks]
+              and abs(cli["losses_printed"][0] - run["losses"][0]) < 1e-4,
+              "train_hybrid: the audit replay in this process gives the "
+              "CLI's digests and block hashes")
+        # the checkpoint's params, loaded to the host (a second state on
+        # the card would not fit beside the trainer's; its float32 moments,
+        # 23 GB, and a second hash of the file would cost the script ~70 s)
+        t = time.perf_counter()
+        with np.load(str(path)) as npz:
+            loaded = checkpoint._unflatten(_host_like(tr.state.params), npz,
+                                           ".params")
+            step = int(npz[".opt/.step"])
+        load_s = time.perf_counter() - t
+        ckpt = {"bytes": path.stat().st_size, "sha256": meta["sha256"]}
+        check(params_digest(loaded) == tr.history[-1].state_digest
+              and step == int(tr.state.opt.step),
+              "train_hybrid: the checkpoint's params load to the replay's "
+              "state_digest")
+        del loaded
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    batch = tr.pipeline.batch(0)
+    hp = tr.hp
+    box = [tr.state]
+    del tr
+    torch.cuda.empty_cache()
+    # one step after the warm-up: at batch 16 a step holds two states
+    # (70 GB), and the allocator's free pieces of the last step's state
+    # may not hold the next one's largest tensors
+    split = step_split(cfg, box, batch, hp, reps=1)
+    del box, batch
+    torch.cuda.empty_cache()
+    per_step = {k: n for k, n in want.items()}
+    return {"phase": "workloads", "part": "train_hybrid",
+            "config": f"recurrentgemma-2b ({cfg.n_layers} layers: {n_rec} "
+                      f"RG-LRU (lru {cfg.lru_width}) and {n_attn} local "
+                      f"attention ({cfg.n_heads} heads over "
+                      f"{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, window "
+                      f"{cfg.window}), d_model {cfg.d_model}, d_ff "
+                      f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype} "
+                      f"weights, {cfg.opt_dtype} AdamW moments, remat "
+                      f"{cfg.remat}), full mode, batch {B} x 256 tokens, 8 "
+                      "miners",
+            "cuts": {"--batch": f"{B} (the driver's default 32 needs more "
+                                "than the card's 80 GB)",
+                     "--blocks": f"{blocks} (the default 200: time)",
+                     "--ckpt-every": f"{blocks} (one checkpoint: time)"},
+            "cli_seconds": cli["seconds"], "cli_printed": cli["printed"],
+            "checkpoint": ckpt, "checkpoint_params_load_to_host_s": load_s,
+            **run, "step_split": split, "launches_a_step": per_step,
+            "cut": cut, "host_work_during_the_cli": others,
+            "launches": {k: run["counts"][k] for k in (
+                "decay_scan", "decay_scan_bwd", "flash_attention_tc",
+                "flash_attention_mma_bwd", "sha256", "merkle")}}
+
+
+def hybrid_cut(cfg):
+    """recurrentgemma-2b cut to one group of its pattern (rec, rec, attn)
+    at full width."""
+    return dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+
+
+def ssm_cut(cfg):
+    """rwkv6-7b cut to ``SSM_CUT_LAYERS`` layers at full width."""
+    return dataclasses.replace(cfg, n_layers=SSM_CUT_LAYERS)
+
+
+def recurrent_cuts_on_card(dev) -> dict:
+    """The card halves of the recurrent parts' cuts (``cut_on_card``):
+    recurrentgemma-2b's 3 layers and rwkv6-7b's 2, at full width; about 20
+    GB of the card each at their peaks, so they fit beside the qwen3
+    CLI's process."""
+    from repro_torch.configs import get_config
+    return {part: cut_on_card(cut(get_config(arch)),
+                              lambda config: _cut_trainer(config, dev))
+            for part, arch, cut in (
+                ("train_hybrid", "recurrentgemma-2b", hybrid_cut),
+                ("train_ssm", "rwkv6-7b", ssm_cut))}
+
+
+def _cut_trainer(config, dev):
+    """A card trainer for ``cut_on_card``: the train CLI's run at
+    ``CUT_BATCH`` x ``CUT_SEQ`` for ``CUT_BLOCKS`` blocks."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.pow_train import PoUWTrainer
+    from repro_torch.train.steps import TrainHparams
+    return PoUWTrainer(config, InputShape("cli", CUT_SEQ, CUT_BATCH, "train"),
+                       hp=TrainHparams(peak_lr=3e-4, warmup_steps=5,
+                                       total_steps=CUT_BLOCKS),
+                       mode="full", n_miners=8, pop_size=8, sigma=0.02,
+                       device=dev)
+
+
+def train_ssm_path(dev, cut_ctx: dict, host_work: list) -> dict:
+    """rwkv6-7b at full width (d 4096, 64 WKV heads of 64, d_ff 14,336,
+    vocab 65,536, bf16 weights, float32 AdamW moments, ``remat``), cut to
+    ``SSM_LAYERS`` of its 32 layers (all 32 need ~97 GB of weights,
+    gradients and moments), through the trainer the train CLI builds
+    (``PoUWTrainer``, full mode, 8 miners) in this process at the CLI's
+    batch 32 x 256: ``SSM_BLOCKS`` blocks, each step's launches (WKV-6's
+    forward twice a layer with remat, its backward once; no other kernel),
+    the build split into init and review, the block time with the host
+    digest's share, the peak device memory; then an audit replay (a second
+    trainer of the same run, after the first is freed; its review, the
+    first's, is skipped) whose digests and block hashes equal the first's;
+    a step split by CUDA events; then a 2-layer cut at full width against
+    the CPU port's step from the same state, leaf by leaf
+    (``cut_on_card``): its card half, ``cut_ctx``, ran
+    beside the qwen3 CLI; its CPU half is appended to ``host_work``, which
+    train_hybrid runs while its CLI's process holds the card."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=SSM_LAYERS)
+    want = {"wkv6": 2 * cfg.n_layers if cfg.remat else cfg.n_layers,
+            "wkv6_bwd": cfg.n_layers}
+    run, tr = _train_recurrent(dev, cfg, SSM_BATCH, SSM_BLOCKS, "train_ssm",
+                               want)
+    miner = [(r.state_digest, r.block_hash) for r in tr.history]
+    batch, hp = tr.pipeline.batch(0), tr.hp
+    del tr
+    torch.cuda.empty_cache()
+    replay, tr = _train_recurrent(dev, cfg, SSM_BATCH, SSM_BLOCKS,
+                                  "train_ssm replay", want)
+    check([(r.state_digest, r.block_hash) for r in tr.history] == miner,
+          "train_ssm: the audit replay gives the miner's digests and block "
+          "hashes")
+    box = [tr.state]
+    del tr
+    torch.cuda.empty_cache()
+    split = step_split(cfg, box, batch, hp, reps=2)
+    del box, batch
+    torch.cuda.empty_cache()
+    host_work.append(lambda: cut_on_cpu(ssm_cut(cfg), cut_ctx, "train_ssm"))
+    return {"phase": "workloads", "part": "train_ssm",
+            "config": f"rwkv6-7b at full width ({cfg.n_layers} of 32 layers, "
+                      f"d_model {cfg.d_model}, {cfg.d_model // cfg.wkv_head_dim}"
+                      f" WKV heads of {cfg.wkv_head_dim}, d_ff {cfg.d_ff}, "
+                      f"vocab {cfg.vocab_size}, {cfg.dtype} weights, "
+                      f"{cfg.opt_dtype} AdamW moments, remat {cfg.remat}), "
+                      f"full mode, batch {SSM_BATCH} x 256 tokens, 8 miners",
+            "cuts": {"layers": f"{SSM_LAYERS} of 32 (all 32: ~97 GB of "
+                               "state)",
+                     "blocks": f"{SSM_BLOCKS} (time)"},
+            **run, "replay": {k: replay[k] for k in (
+                "trainer_build_s", "review_s", "block_s", "losses")},
+            "step_split": split, "launches_a_step": want,
+            "cut": "its CPU half runs during train_hybrid's CLI process: "
+                   "the train_ssm_cut line",
+            "launches": {k: run["counts"][k] + replay["counts"][k]
+                         for k in ("wkv6", "wkv6_bwd", "sha256", "merkle")}}
 
 
 def micro_train_path(dev) -> dict:
@@ -3670,6 +4533,7 @@ def main() -> int:
     from repro_torch.core.jash import Jash, JashMeta, collatz_jash
     from repro_torch.core.ledger import merkle_root
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     flash_attention_mma_bwd,
                                      flash_attention_tc_bwd, native, ref,
                                      sha256)
 
@@ -3713,6 +4577,12 @@ def main() -> int:
           "flash_tc_resources": flash_tc_resources(),
           "flash_bwd_resources": flash_bwd_resources(ptxas),
           "flash_tc_bwd_resources": flash_tc_bwd_resources(ptxas),
+          "flash_mma_bwd_resources": flash_mma_bwd_resources(ptxas),
+          "wkv6_bwd_resources": {
+              "ptxas": {name: lines for name, lines in
+                        ptxas["kernels"].items()
+                        if name.startswith(("wkv6_bwd", "wkv6_du",
+                                            "decay_scan_bwd"))}},
           "counted_ops": {"compression": OPS_COMPRESSION,
                           "merkle_parent": OPS_COMPRESSION
                           + OPS_PAD_COMPRESSION}})
@@ -3763,6 +4633,10 @@ def main() -> int:
     emit({"phase": "flash_bwd_vs_plain", **bwd})
     tc_bwd = flash_tc_bwd_vs_plain(dev)
     emit({"phase": "flash_tc_bwd_vs_plain", **tc_bwd})
+    decay_bwd = decay_bwd_vs_plain(dev)
+    emit({"phase": "decay_scan_bwd_vs_plain", **decay_bwd})
+    wkv_bwd = wkv_bwd_vs_plain(dev)
+    emit({"phase": "wkv6_bwd_vs_plain", **wkv_bwd})
     flash_err = {**flash["max_abs_err"]}
     for key, err in flash_win["max_abs_err"].items():
         flash_err[key] = max(flash_err.get(key, 0.0), err)
@@ -3775,6 +4649,11 @@ def main() -> int:
     max_err["wkv6"] = wkv["max_abs_err"]
     max_err["flash_attention_bwd"] = bwd["max_abs_err"]
     max_err["flash_attention_tc_bwd"] = tc_bwd["max_abs_err"]
+    max_err["flash_attention_tc_train_hd256"] = \
+        tc_bwd["by_head_dim"][256]["lse"]
+    max_err["flash_attention_mma_bwd"] = tc_bwd["by_head_dim"][256]["abs"]
+    max_err["decay_scan_bwd"] = decay_bwd["max_abs_err"]
+    max_err["wkv6_bwd"] = wkv_bwd["max_abs_err"]
     emit({"phase": "kernels_vs_plain", "sha256": sha_rows,
           "merkle": {"cases": merkle_cases["cases"], "equal": True},
           "flash_attention": {"cases": flash["cases"] + flash_win["cases"],
@@ -3791,6 +4670,11 @@ def main() -> int:
           "flash_attention_tc_bwd": {"cases": tc_bwd["cases"],
                                      "within_tolerance": True,
                                      "tolerance": tc_bwd["tolerance"]},
+          "decay_scan_bwd": {"cases": decay_bwd["cases"],
+                             "within_tolerance": True,
+                             "tolerance": decay_bwd["tolerance"]},
+          "wkv6_bwd": {"cases": wkv_bwd["cases"], "within_tolerance": True,
+                       "tolerance": wkv_bwd["tolerance"]},
           "max_abs_err": max_err})
 
     # timing at the main path's shapes
@@ -3834,12 +4718,18 @@ def main() -> int:
     emit({"phase": "flash_bwd_times", "gpu": smi, **bwd_time})
     tc_bwd_time = flash_tc_bwd_times(dev)
     emit({"phase": "flash_tc_bwd_times", "gpu": smi, **tc_bwd_time})
+    rec_bwd_time = recurrent_bwd_times(dev)
+    emit({"phase": "recurrent_bwd_times", "gpu": smi, **rec_bwd_time})
+    hd256_time = flash_hd256_train_times(dev)
+    emit({"phase": "flash_hd256_train_times", "gpu": smi, **hd256_time})
     emit({"phase": "kernel_times", "gpu": smi, "sha256": sha_times,
           "merkle": merkle_time, "flash_attention": flash_time,
           "flash_attention_serving_shapes": flash_new,
           "flash_cuda_core_float32": core_f32,
           "flash_attention_bwd": bwd_time,
-          "flash_attention_tc_bwd": tc_bwd_time, **rec_times})
+          "flash_attention_tc_bwd": tc_bwd_time,
+          "flash_attention_hd256_training": hd256_time, **rec_times,
+          **rec_bwd_time})
     torch.cuda.empty_cache()
 
     # -- 3. the main path at full size -------------------------------------
@@ -3940,7 +4830,17 @@ def main() -> int:
     # -- 5. workload families, the journal, the quickstart and training -----
     # each part zeroes the counts just before it and reads them just after
     paths = {}
-    for name, run in (("train_cli", lambda: train_cli_path(dev)),
+    # the recurrent parts' cuts: card halves beside the qwen3 CLI, CPU
+    # halves beside the recurrentgemma CLI
+    cuts, host_work = {}, []
+    reviews, restore_reviews = _review_each_step_once()
+    for name, run in (("train_cli", lambda: train_cli_path(
+                          dev, [lambda: cuts.update(
+                              recurrent_cuts_on_card(dev))])),
+                      ("train_ssm", lambda: train_ssm_path(
+                          dev, cuts["train_ssm"], host_work)),
+                      ("train_hybrid", lambda: train_hybrid_path(
+                          dev, cuts["train_hybrid"], host_work)),
                       ("micro_train", lambda: micro_train_path(dev)),
                       ("sat", lambda: sat_path(dev)),
                       ("docking", lambda: docking_path(dev)),
@@ -3951,8 +4851,14 @@ def main() -> int:
                       ("pouw_es", lambda: pouw_es_path(dev)),
                       ("gan", lambda: gan_path(dev))):
         t = time.perf_counter()
-        paths[name] = run()
+        try:
+            paths[name] = run()
+        except BaseException:
+            restore_reviews()
+            raise
         emit({**paths[name], "seconds": time.perf_counter() - t, "gpu": smi})
+    restore_reviews()
+    emit({"phase": "workloads", "part": "step_reviews", **reviews})
 
     # -- 6. serving at full width: qwen3-0.6b, rwkv6-7b, recurrentgemma-2b --
     # bf16 attention at hd 128 and 256 takes the tensor-core kernel; the
@@ -4090,6 +4996,71 @@ def main() -> int:
         replaces_note="no TPU kernel: the reference differentiates "
                       "chunked_attention (jax.grad)")
     tc_bwd_row["replaces"] = "src/repro/models/attention.py:79"
+    hybrid, ssm = paths["train_hybrid"], paths["train_ssm"]
+    for name, kernels in (("train_hybrid", ("decay_scan", "decay_scan_bwd",
+                                            "flash_attention_tc",
+                                            "flash_attention_mma_bwd")),
+                          ("train_ssm", ("wkv6", "wkv6_bwd"))):
+        check(all(paths[name]["launches"][k] > 0 for k in kernels),
+              f"{kernels} launched on the {name} path")
+    rg_train = hd256_time["recurrentgemma-2b train"]
+    c_row = row("flash_attention_tc_train_hd256",
+                "flash_attention_tc_train_hd256", "flash_attention_tc.cu",
+                "flash_attention.py:28",
+                hybrid["counts"]["flash_attention_tc_training"],
+                rg_train["forward"],
+                device_ms_from_graph=rg_train["forward"][
+                    "device_ms_from_graph"],
+                s4096_shape=hd256_time["recurrentgemma-2b S=T=4096"][
+                    "forward"],
+                launches_by_path={"train_hybrid": hybrid["counts"][
+                    "flash_attention_tc_training"]},
+                path="training recurrentgemma-2b (train_hybrid): the "
+                     "tensor-core forward's training instance at hd 256 "
+                     "(saves the row log-sum-exp; output bit-equal to the "
+                     "serving instance), twice an attention layer and step "
+                     "with remat; max_abs_err is its log-sum-exp's")
+    d_row = row("flash_attention_mma_bwd", "flash_attention_mma_bwd",
+                "flash_attention_mma_bwd.cu", "", hybrid["launches"][
+                    "flash_attention_mma_bwd"], rg_train["backward"],
+                device_ms_from_graph=rg_train["backward"][
+                    "device_ms_from_graph"],
+                s4096_shape=hd256_time["recurrentgemma-2b S=T=4096"][
+                    "backward"],
+                tile=flash_attention_mma_bwd.tile(),
+                launches_by_path={"train_hybrid": hybrid["launches"][
+                    "flash_attention_mma_bwd"]},
+                path="training recurrentgemma-2b (train_hybrid): one call a "
+                     "local-attention layer and step, three kernels each",
+                replaces_note="no TPU kernel: the reference differentiates "
+                              "chunked_attention (jax.grad)")
+    d_row["replaces"] = "src/repro/models/attention.py:79"
+    a_row = row("decay_scan_bwd", "decay_scan_bwd", "decay_scan_bwd.cu", "",
+                hybrid["launches"]["decay_scan_bwd"],
+                rec_bwd_time["decay_scan_bwd"],
+                device_ms_from_graph=rec_bwd_time["decay_scan_bwd"][
+                    "device_ms_from_graph"],
+                launches_by_path={"train_hybrid": hybrid["launches"][
+                    "decay_scan_bwd"]},
+                path="training recurrentgemma-2b (train_hybrid): one launch "
+                     "a RG-LRU layer and step",
+                replaces_note="no TPU kernel: the reference differentiates "
+                              "the associative_scan of rg_lru_scan "
+                              "(jax.grad), the function of "
+                              "src/repro/kernels/decay_scan.py:21")
+    a_row["replaces"] = "src/repro/models/rglru.py:77"
+    b_row = row("wkv6_bwd", "wkv6_bwd", "wkv6_bwd.cu", "",
+                ssm["launches"]["wkv6_bwd"], rec_bwd_time["wkv6_bwd"],
+                device_ms_from_graph=rec_bwd_time["wkv6_bwd"][
+                    "device_ms_from_graph"],
+                launches_by_path={"train_ssm": ssm["launches"]["wkv6_bwd"]},
+                path="training rwkv6-7b (train_ssm): one call a layer and "
+                     "step, two kernels each (the backward, du's sum over "
+                     "the batch)",
+                replaces_note="no TPU kernel: the reference differentiates "
+                              "the lax.scan of wkv_ref (jax.grad), the "
+                              "function of src/repro/kernels/wkv6.py:22")
+    b_row["replaces"] = "src/repro/models/rwkv6.py:59"
     emit({"kernels": [
         row("sha256_rows", "sha256", "sha256.cu", "sha256.py:34",
             counts["sha256"], {**chunk, "library_ms": None}, path="mining",
@@ -4108,7 +5079,8 @@ def main() -> int:
                 for name, res in paths.items()}}),
         row("flash_attention_tc", "flash_attention_tc",
             "flash_attention_tc.cu", "flash_attention.py:28",
-            sum(tc_by_path.values()) + cli["launches"]["flash_attention_tc"],
+            sum(tc_by_path.values()) + cli["launches"]["flash_attention_tc"]
+            + hybrid["launches"]["flash_attention_tc"],
             at(flash_time, "tensor_core"),
             recurrentgemma_shape=at(flash_rg, "tensor_core"),
             hd80_shape=at(flash_new["stablelm-3b prefill"], "tensor_core"),
@@ -4135,7 +5107,8 @@ def main() -> int:
                  "one)",
             launches_by_path={
                 **tc_by_path,
-                "train_cli": cli["launches"]["flash_attention_tc"]}),
+                "train_cli": cli["launches"]["flash_attention_tc"],
+                "train_hybrid": hybrid["launches"]["flash_attention_tc"]}),
         row("flash_attention_fwd", "flash_attention", "flash_attention.cu",
             "flash_attention.py:28", sum(small_flash.values())
             + sum(fwd_by_path.values()),
@@ -4167,11 +5140,21 @@ def main() -> int:
         bwd_row,
         tc_bwd_row,
         row("decay_scan", "decay_scan", "decay_scan.cu", "decay_scan.py:21",
-            rg["decay_scan"], rec_times["decay_scan"],
-            path="serving recurrentgemma-2b"),
+            rg["decay_scan"] + hybrid["launches"]["decay_scan"],
+            rec_times["decay_scan"],
+            path="serving recurrentgemma-2b; training it (train_hybrid: "
+                 "twice a RG-LRU layer and step with remat)",
+            launches_by_path={"serve recurrentgemma-2b": rg["decay_scan"],
+                              "train_hybrid": hybrid["launches"][
+                                  "decay_scan"]}),
         row("wkv6", "wkv6", "wkv6.cu", "wkv6.py:22",
-            served["rwkv6-7b"]["counts"]["wkv6"], rec_times["wkv6"],
-            path="serving rwkv6-7b"),
+            served["rwkv6-7b"]["counts"]["wkv6"] + ssm["launches"]["wkv6"],
+            rec_times["wkv6"],
+            path="serving rwkv6-7b; training it (train_ssm: twice a layer "
+                 "and step with remat)",
+            launches_by_path={"serve rwkv6-7b": served["rwkv6-7b"]["counts"][
+                "wkv6"], "train_ssm": ssm["launches"]["wkv6"]}),
+        c_row, d_row, a_row, b_row,
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -66,10 +66,11 @@
 //   in a fixed order (no split over keys, no atomics), so two launches
 //   give equal bits.
 //
-// The training instance (LSE = true, hd 64 and 128; the forward of
+// The training instance (LSE = true, hd 64, 128 and 256; the forward of
 // kernels/flash_attention.py's autograd Function for bfloat16) also writes
 // each row's log-sum-exp of its scaled scores, float32 (B, H, S) in
-// natural-log units, for the backward (flash_attention_tc_bwd.cu); a row
+// natural-log units, for the backward (flash_attention_tc_bwd.cu at hd 64
+// and 128, flash_attention_mma_bwd.cu at hd 256); a row
 // that sees no key writes -1e30, as ref.flash_attention_lse_ref does. Its
 // output is the serving instance's (LSE = false) bit for bit: the store is
 // the only difference.
@@ -524,7 +525,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
 // The registers a thread, dynamic shared memory and local memory (spills)
 // of the kernel at head dim `hd`, as the runtime reports them: the serving
 // instance (hd 64, 80, 128, 256), or with `lse` the training instance (hd
-// 64 and 128).
+// 64, 128 and 256).
 extern "C" int pnp_flash_attention_tc_info(int32_t hd, int32_t lse,
                                            int32_t* registers,
                                            int32_t* shared_bytes,
@@ -554,6 +555,10 @@ extern "C" int pnp_flash_attention_tc_info(int32_t hd, int32_t lse,
             break;
         case 512:
             err = cudaFuncGetAttributes(&attr, flash_tc_kernel<256, false>);
+            *shared_bytes = smem_bytes<256>();
+            break;
+        case 513:
+            err = cudaFuncGetAttributes(&attr, flash_tc_kernel<256, true>);
             *shared_bytes = smem_bytes<256>();
             break;
         default: return (int)cudaErrorInvalidValue;
@@ -589,7 +594,7 @@ extern "C" int pnp_flash_attention_tc_fwd(const void* q, const void* k,
     }
 }
 
-// The training forward: as pnp_flash_attention_tc_fwd at hd 64 or 128, and
+// The training forward: as pnp_flash_attention_tc_fwd at hd 64, 128 or 256, and
 // also each row's log-sum-exp of its scaled scores into lse, float32 (B, H,
 // S), natural-log units (-1e30 for a row that sees no key).
 extern "C" int pnp_flash_attention_tc_fwd_lse(const void* q, const void* k,
@@ -609,6 +614,7 @@ extern "C" int pnp_flash_attention_tc_fwd_lse(const void* q, const void* k,
     switch (hd) {
         case 64: return launch<64, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
         case 128: return launch<128, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
+        case 256: return launch<256, true>(q, k, v, out, B, S, T, H, Kv, causal, window, st, l);
         default: return (int)cudaErrorInvalidValue;
     }
 }

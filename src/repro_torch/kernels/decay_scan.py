@@ -10,6 +10,11 @@ carry, the carry handed from chunk to chunk. ``decay_scan_cuda_per_chain``
 hold the tiled kernel against; no path calls it. No channel padding is
 needed. ``kernels/ops.py`` sends CUDA tensors here and CPU tensors to
 ``ref.decay_scan_ref``.
+
+For training, ``DecayScan`` is the autograd Function: its forward is
+``decay_scan_cuda``, its backward ``decay_scan_bwd_cuda``, the hand-written
+reverse scan of ``csrc/decay_scan_bwd.cu`` on the saved a and h (plain
+version: ``ref.decay_scan_bwd_ref``).
 """
 from __future__ import annotations
 
@@ -21,8 +26,10 @@ from repro_torch.kernels import native
 
 # Launches of the tiled kernel from ``decay_scan_cuda`` since the last
 # reset (a run shows its path went through the kernel by reading this; only
-# the launch there adds to it).
+# the launch there adds to it), and of the backward kernel from
+# ``decay_scan_bwd_cuda``.
 launches = 0
+bwd_launches = 0
 
 # Zeroed workspace of the tiled kernel (its ticket and carries), one per
 # card and stream: launches that share one must be ordered, and each leaves
@@ -110,3 +117,51 @@ def decay_scan_cuda_per_chain(a: torch.Tensor, b: torch.Tensor,
     counted."""
     out, h_last, _ = _run("decay_scan_cuda_per_chain", a, b, h0, False)
     return out, h_last
+
+
+def decay_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                        dh_last: Optional[torch.Tensor] = None,
+                        h0: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients (da, db) of ``decay_scan_cuda``'s (h, h_last) from a
+    and its output h, dh (B, S, C) and dh_last (B, C) or None (zeros); h0
+    (B, C) or None is the start the forward ran from. float32, contiguous,
+    on one CUDA card. One launch of ``csrc/decay_scan_bwd.cu``."""
+    global bwd_launches
+    B, S, C = _checked("decay_scan_bwd_cuda", a, h, h0)
+    _checked("decay_scan_bwd_cuda", a, dh, dh_last)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    if B and C:
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        with torch.cuda.device(a.device):
+            rc = native.library().pnp_decay_scan_bwd(
+                a.data_ptr(), h.data_ptr(), ptr(h0), dh.data_ptr(),
+                ptr(dh_last), da.data_ptr(), db.data_ptr(), None, B, S, C,
+                native.stream_of(a))
+        bwd_launches += 1
+        native.check_launch("decay_scan_bwd_cuda", rc)
+    return da, db
+
+
+class DecayScan(torch.autograd.Function):
+    """The decay scan with its gradient on the card: forward
+    ``decay_scan_cuda``, backward ``decay_scan_bwd_cuda`` on the saved a,
+    h and h0. h0 takes no gradient (``kernels/ops.py`` raises if it asks
+    for one)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h, h_last = decay_scan_cuda(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        ctx.set_materialize_grads(False)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h, h0 = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        da, db = decay_scan_bwd_cuda(
+            a, h, dh.contiguous(),
+            None if dh_last is None else dh_last.contiguous(), h0)
+        return da, db, None

@@ -17,16 +17,18 @@ For training, ``FlashAttention`` is the autograd Function: in float32 its
 forward launches the CUDA-core kernel's instance that also saves each
 row's log-sum-exp (``flash_attention_lse_cuda``) and its backward the
 CUDA-core backward (``flash_attention_bwd.flash_attention_bwd_cuda``); in
-bfloat16 at head dims 64 and 128 the tensor-core kernel's training
-instance (``flash_attention_tc.flash_attention_tc_lse_cuda``) and the
-tensor-core backward (``flash_attention_tc_bwd``). ``train_kernels_for``
-is that rule; any other dtype or head dim raises.
+bfloat16 at head dims 64, 128 and 256 the tensor-core kernel's training
+instance (``flash_attention_tc.flash_attention_tc_lse_cuda``) and a
+tensor-core backward (``flash_attention_tc_bwd`` at 64 and 128,
+``flash_attention_mma_bwd`` at 256). ``train_kernels_for`` is that rule;
+any other dtype or head dim raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (flash_attention_bwd, flash_attention_tc,
+from repro_torch.kernels import (flash_attention_bwd,
+                                 flash_attention_mma_bwd, flash_attention_tc,
                                  flash_attention_tc_bwd, native)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -63,9 +65,8 @@ def train_kernels_for(dtype: torch.dtype, head_dim: int) -> str:
     raise TypeError(
         f"flash attention with grad: no training instance for {dtype} at "
         f"head dim {head_dim} (float32 at {TRAIN_HEAD_DIMS}, bfloat16 at "
-        f"{flash_attention_tc.TRAIN_HEAD_DIMS}; bfloat16 at head dims 80 "
-        "and 256: ROADMAP.md §1, item 4, training the hybrid, ssm, moe, "
-        "encdec and vlm families)")
+        f"{flash_attention_tc.TRAIN_HEAD_DIMS}; bfloat16 at head dim 80: "
+        "ROADMAP.md §1, item 4, stablelm-3b's training pair)")
 
 
 def tile(head_dim: int) -> dict:
@@ -150,7 +151,8 @@ class FlashAttention(torch.autograd.Function):
     training instance, the backward a hand-written backward kernel on the
     saved q, k, v, output and row log-sum-exp, as ``train_kernels_for``
     chooses: float32 at head dims 16, 32, 64 and 128 on the CUDA cores,
-    bfloat16 at 64 and 128 on the tensor cores. Anything else raises."""
+    bfloat16 at 64, 128 and 256 on the tensor cores. Anything else
+    raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
@@ -165,9 +167,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = (flash_attention_bwd.flash_attention_bwd_cuda
-               if ctx.kind == "cuda_core"
-               else flash_attention_tc_bwd.flash_attention_tc_bwd_cuda)
+        if ctx.kind == "cuda_core":
+            bwd = flash_attention_bwd.flash_attention_bwd_cuda
+        elif q.shape[-1] in flash_attention_mma_bwd.HEAD_DIMS:
+            bwd = flash_attention_mma_bwd.flash_attention_mma_bwd_cuda
+        else:
+            bwd = flash_attention_tc_bwd.flash_attention_tc_bwd_cuda
         dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(),
                          causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None

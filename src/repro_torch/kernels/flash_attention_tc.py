@@ -7,8 +7,9 @@ function of the reference's Pallas flash kernel, with both products on
 Hopper's tensor cores (``wgmma``), K and V brought by TMA and a
 warp-specialised pipeline. ``flash_attention.flash_attention_cuda`` sends
 it the calls that ``flash_attention.kernel_for`` assigns to it. Its training
-instance (``flash_attention_tc_lse_cuda``, hd 64 and 128) also saves each
-row's log-sum-exp for the bf16 backward (``flash_attention_tc_bwd``).
+instance (``flash_attention_tc_lse_cuda``, hd 64, 128 and 256) also saves
+each row's log-sum-exp for the bf16 backward (``flash_attention_tc_bwd`` at
+hd 64 and 128, ``flash_attention_mma_bwd`` at 256).
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ import torch
 from repro_torch.kernels import native
 
 HEAD_DIMS = (64, 80, 128, 256)
-# the training instance (with the row log-sum-exp), as the backward's
-TRAIN_HEAD_DIMS = (64, 128)
+# the training instance (with the row log-sum-exp), as the backwards'
+TRAIN_HEAD_DIMS = (64, 128, 256)
 
 # Kernel launches since the last reset (a run shows its path went through
 # the kernel by reading this; only the launches below add to it), and of

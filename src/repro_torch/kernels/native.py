@@ -154,6 +154,21 @@ def library() -> ctypes.CDLL:
     lib.pnp_decay_scan_per_chain.restype = ctypes.c_int
     lib.pnp_decay_scan_workspace_words.argtypes = [i64, i64]
     lib.pnp_decay_scan_workspace_words.restype = ctypes.c_int64
+    lib.pnp_decay_scan_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64,
+                                       i64, i64, vp]
+    lib.pnp_decay_scan_bwd.restype = ctypes.c_int
+    lib.pnp_wkv6_bwd.argtypes = [vp] * 14 + [i64, i64, i32, i32, i32, i32,
+                                             vp]
+    lib.pnp_wkv6_bwd.restype = ctypes.c_int
+    lib.pnp_wkv6_bwd_workspace_words.argtypes = [i64, i64, i32, i32]
+    lib.pnp_wkv6_bwd_workspace_words.restype = ctypes.c_int64
+    lib.pnp_wkv6_bwd_info.argtypes = [vp]
+    lib.pnp_wkv6_bwd_info.restype = ctypes.c_int
+    lib.pnp_flash_attention_mma_bwd.argtypes = [vp] * 11 + [
+        i64, i64, i64, i32, i32, i32, i32, vp]
+    lib.pnp_flash_attention_mma_bwd.restype = ctypes.c_int
+    lib.pnp_flash_attention_mma_bwd_info.argtypes = [vp]
+    lib.pnp_flash_attention_mma_bwd_info.restype = ctypes.c_int
     return lib
 
 

@@ -12,7 +12,17 @@ plainly in float32; ``flash_attention_lse_ref`` its rows' log-sum-exp,
 and ``flash_attention_bwd_ref`` its gradients, step by step as the
 backward kernel computes them. ``decay_scan_ref`` and ``wkv6_ref`` are the
 reference's recurrences (``repro/kernels/ref.py``) as sequential loops
-over time in float32.
+over time in float32; ``decay_scan_bwd_ref`` and ``wkv6_bwd_ref`` their
+gradients, step by step in reverse as the backward kernels compute them.
+These loops are the twins the card's kernels are held to.
+
+``decay_scan_doubling`` and ``wkv6_chunked`` compute the same functions in
+few operations (a log-depth doubling scan; chunks of 16 steps whose
+relative decays are exps of differences of cumulative log-decays, each at
+most 1). ``kernels/ops.py`` runs them on the CPU, where autograd
+differentiates them, and so does the step's review, which traces the loss
+on fake tensors: a loop of one step a token would trace tens of thousands
+of operations at a full config's depth.
 """
 from __future__ import annotations
 
@@ -230,4 +240,150 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]
         out[:, t] = torch.einsum("bhk,bhkv->bhv", r32[:, t], s + u32 * kv)
         s = w32[:, t, :, :, None] * s + kv
+    return out, s
+
+
+def decay_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                       dh_last: Optional[torch.Tensor] = None,
+                       h0: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``decay_scan_ref``'s (h, h_last) from a (B, S, C), its
+    output h, dh (B, S, C) and dh_last (B, C) or None (zeros), with h0 (B,
+    C) or None (zeros) the start it ran from. Returns (da, db, dh0), float32:
+    g_{S-1} = dh_{S-1} + dh_last, g_t = dh_t + a_{t+1} g_{t+1}; da_t = g_t
+    h_{t-1} (h_{-1} = h0), db_t = g_t, dh0 = a_0 g_0, in the kernel's order
+    of operations."""
+    a32, h32, dh32 = a.float(), h.float(), dh.float()
+    B, S, C = a.shape
+    carry = (a32.new_zeros((B, C)) if dh_last is None
+             else dh_last.float().clone())
+    start = a32.new_zeros((B, C)) if h0 is None else h0.float()
+    da, db = torch.empty_like(a32), torch.empty_like(a32)
+    for t in range(S - 1, -1, -1):
+        g = dh32[:, t] + carry
+        db[:, t] = g
+        da[:, t] = g * (h32[:, t - 1] if t else start)
+        carry = a32[:, t] * g
+    return da, db, carry
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                 ds_final: Optional[torch.Tensor] = None,
+                 s0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``wkv6_ref``'s (out, s_final) from dout (B, S, H, V) and
+    ds_final (B, H, K, V) or None (zeros). Returns (dr, dk, dv, dw, du),
+    float32, du (H, K) summed over the batch: with the state S_{t-1} before
+    step t and dS_t the gradient of the state after it, dr_t = S_{t-1} do_t
+    + u k_t (v_t.do_t), dk_t = dS_t v_t + u r_t (v_t.do_t), dv_t = dS_t^T
+    k_t + (sum_k r_t u k_t) do_t, dw_t = rowsum(dS_t S_{t-1}), then dS_{t-1}
+    = diag(w_t) dS_t + r_t do_t^T."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    do32, u32 = dout.float(), u.float()
+    s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float().clone())
+    states = []
+    for t in range(S):
+        states.append(s)
+        s = w32[:, t, :, :, None] * s + k32[:, t, :, :, None] * \
+            v32[:, t, :, None, :]
+    ds = (torch.zeros_like(s) if ds_final is None
+          else ds_final.float().clone())
+    dr, dk, dw = (torch.empty_like(r32) for _ in range(3))
+    dv = torch.empty_like(v32)
+    du = torch.zeros((B, H, K), dtype=torch.float32, device=r.device)
+    for t in range(S - 1, -1, -1):
+        rt, kt, vt, gt = r32[:, t], k32[:, t], v32[:, t], do32[:, t]
+        p = (vt * gt).sum(-1, keepdim=True)                  # (B, H, 1)
+        a = (rt * u32 * kt).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhkv,bhv->bhk", states[t], gt) + \
+            u32 * kt * p
+        dk[:, t] = torch.einsum("bhkv,bhv->bhk", ds, vt) + u32 * rt * p
+        dv[:, t] = torch.einsum("bhkv,bhk->bhv", ds, kt) + a * gt
+        dw[:, t] = (ds * states[t]).sum(-1)
+        du = du + rt * kt * p
+        ds = w32[:, t, :, :, None] * ds + rt[..., None] * gt[:, :, None, :]
+    return dr, dk, dv, dw, du.sum(0)
+
+
+def decay_scan_doubling(a: torch.Tensor, b: torch.Tensor,
+                        h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``decay_scan_ref``'s function by log2(S) doubling steps (the
+    reference's ``associative_scan`` algebra: (a1, b1) then (a2, b2) is (a1
+    a2, a2 b1 + b2)); h0 (zeros if None) folds into step 0's b as the
+    reference folds it, so a is in the graph at every S. float32 inside,
+    returned in a's dtype."""
+    A, h = a.float(), b.float()
+    S = a.shape[1]
+    if S:
+        start = (A.new_zeros((a.shape[0], 1, a.shape[2])) if h0 is None
+                 else h0.float()[:, None])
+        h = torch.cat([h[:, :1] + A[:, :1] * start, h[:, 1:]], dim=1)
+    off = 1
+    while off < S:
+        h = torch.cat([h[:, :off], h[:, off:] + A[:, off:] * h[:, :-off]],
+                      dim=1)
+        if 2 * off < S:
+            A = torch.cat([A[:, :off], A[:, off:] * A[:, :-off]], dim=1)
+        off *= 2
+    return h.to(a.dtype)
+
+
+# steps a chunk of ``wkv6_chunked``; a log-decay below LOG_W_MIN (w <
+# 1e-26, whose contribution is below float32's resolution) is clamped so
+# that a w that underflowed to 0 gives no inf - inf
+WKV_CHUNK = 16
+LOG_W_MIN = -60.0
+
+
+def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 s0: Optional[torch.Tensor] = None,
+                 chunk: int = WKV_CHUNK
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wkv6_ref``'s function in chunks of ``chunk`` steps: with c the
+    cumulative log-decay inside a chunk, step t sees step tau < t of its
+    chunk through exp(c_{t-1} - c_tau) and the chunk's start state through
+    exp(c_{t-1}), each at most 1; one state update a chunk. float32."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    if S == 0:
+        return torch.zeros((B, 0, H, V), dtype=torch.float32,
+                           device=r.device), s.clone()
+    L = chunk
+    nc = -(-S // L)
+    pad = nc * L - S
+
+    def chunks(x, fill):                   # (B, S, H, D) -> (B, H, nc, L, D)
+        x = x.float()
+        if pad:
+            x = torch.cat([x, x.new_full((B, pad) + x.shape[2:], fill)], 1)
+        return x.reshape(B, nc, L, H, x.shape[-1]).permute(0, 3, 1, 2, 4)
+    rc, kc, vc, wc = chunks(r, 0.0), chunks(k, 0.0), chunks(v, 0.0), \
+        chunks(w, 1.0)
+    lw = torch.log(wc).clamp(min=LOG_W_MIN)
+    c = torch.cumsum(lw, dim=3)            # through step t
+    cp = c - lw                            # through step t - 1
+    before = torch.ones(L, L, dtype=torch.bool, device=r.device).tril(-1)
+    diff = torch.where(before[:, :, None], cp[..., :, None, :]
+                       - c[..., None, :, :], float("-inf"))
+    att = (rc[..., :, None, :] * kc[..., None, :, :]
+           * torch.exp(diff)).sum(-1)     # (B, H, nc, L, L)
+    bonus = (rc * u.float()[None, :, None, None, :] * kc).sum(-1)
+    out = att @ vc + bonus[..., None] * vc
+    rq = rc * torch.exp(cp)
+    kd = kc * torch.exp(c[..., -1:, :] - c)
+    added = kd.transpose(-1, -2) @ vc      # (B, H, nc, K, V)
+    decay = torch.exp(c[..., -1, :])[..., None]
+    inter = []
+    for n in range(nc):
+        inter.append(rq[:, :, n] @ s)
+        s = decay[:, :, n] * s + added[:, :, n]
+    out = out + torch.stack(inter, dim=2)
+    out = out.permute(0, 2, 3, 1, 4).reshape(B, nc * L, H, V)[:, :S]
     return out, s

@@ -37,7 +37,7 @@ class EncDecModel(Model):
     # -- init -----------------------------------------------------------------
     def init(self, rng) -> Params:
         if not isinstance(rng, torch.Generator):
-            self._dense_only("init from a threefry key")
+            self._trained_family("init from a threefry key")
         cfg = self.cfg
         dev = rng.device
         p = super().init(rng)
@@ -83,7 +83,7 @@ class EncDecModel(Model):
     def forward(self, p: Params, batch: Dict):
         """Teacher-forced logits (B, S, padded vocab) and aux 0.0."""
         if wants_grad(p):
-            self._dense_only("the training forward")
+            self._trained_family("the training forward")
         cfg = self.cfg
         enc_out = self.encode(p, batch["audio_frames"])
         x = self._with_positions(self._embed(p, batch["tokens"]))

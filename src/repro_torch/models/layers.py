@@ -16,7 +16,6 @@ from typing import Any, Dict, List, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import random
 
@@ -176,8 +175,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab_size: int) -> torch.Tensor:
     """Mean next-token CE in float32; positions with label < 0 are masked,
     and logits at or past ``vocab_size`` (the padded vocab) never count.
-    The gold logit is picked by a one-hot product, whose backward is a
-    plain product too: no scatter, so the same bits on every run."""
+    The gold logit is picked by a select against a boolean one-hot and a
+    sum over the vocab, whose backward is a select too: no scatter, so the
+    same bits on every run (and one byte a logit, not a float one-hot's
+    four, at a 256,000-wide vocab)."""
     v_pad = logits.shape[-1]
     logits = logits.float()
     if v_pad != vocab_size:
@@ -185,7 +186,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         logits = torch.where(keep, logits, -1e9)
     logz = torch.logsumexp(logits, dim=-1)
     labels = labels.to(logits.device)
-    pick = F.one_hot(labels.clamp(min=0).long(), v_pad).to(logits.dtype)
-    gold = (logits * pick).sum(dim=-1)
+    pick = torch.arange(v_pad, device=logits.device) == \
+        labels.clamp(min=0).long()[..., None]
+    gold = torch.where(pick, logits, 0.0).sum(dim=-1)
     valid = (labels >= 0).float()
     return (logz - gold).mul(valid).sum() / valid.sum().clamp(min=1.0)

@@ -20,28 +20,36 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, silu
+from repro_torch.models.layers import (Rng, dense_init, normal_init,
+                                       rng_device, silu, split_rng)
 
 _C = 8.0
 _CONV_W = 4
 
 
-def init_rglru_block(gen: torch.Generator, d: int, lru: int, dtype,
+def init_rglru_block(rng: Rng, d: int, lru: int, dtype,
                      n_stack: int = 0) -> Dict:
     """As the reference: one draw per weight, the same for every layer of
-    a stack."""
-    dev = gen.device
+    a stack. From a threefry key, the reference's draws (its ``split(key,
+    6)``: ``ks[4]`` for ``conv``, ``ks[5]`` for ``w_x``); from a generator,
+    ``torch.randn`` in the order of the dict. ``lambda`` is drawn from no
+    key: it is ``linspace``'s, computed in float32 by PyTorch (the
+    reference's XLA rounds its linspace and log differently, by a few
+    float32 ulps)."""
+    dev = rng_device(rng)
+    ks = split_rng(rng, 6)
 
-    def mk(i, o):
-        w = dense_init(gen, i, o, dtype)
+    def mk(key, i, o):
+        w = dense_init(key, i, o, dtype)
         return w.expand((n_stack, i, o)).contiguous() if n_stack else w
     lam = torch.linspace(0.9, 0.999, lru, dtype=torch.float32, device=dev)
     lam = torch.log(torch.exp(-torch.log(lam) / _C) - 1.0)  # a ~ lam
-    conv = (torch.randn((_CONV_W, lru), generator=gen, device=dev,
-                        dtype=torch.float32) * 0.1).to(dtype)
-    p = {"gate_in": mk(d, lru), "lru_in": mk(d, lru), "lru_out": mk(lru, d),
-         "w_a": mk(lru, lru), "w_x": mk(lru, lru), "lambda": lam,
-         "conv": conv}
+    p = {"gate_in": mk(ks[0], d, lru), "lru_in": mk(ks[1], d, lru),
+         "lru_out": mk(ks[2], lru, d), "w_a": mk(ks[3], lru, lru),
+         "w_x": mk(ks[5], lru, lru), "lambda": lam}
+    # the reference scales its float32 draw by 0.1 rounded to float32
+    conv = normal_init(ks[4], (_CONV_W, lru), 0.1, torch.float32).to(dtype)
+    p["conv"] = conv
     if n_stack:
         p["lambda"] = lam.expand((n_stack, lru)).contiguous()
         p["conv"] = conv.expand((n_stack, _CONV_W, lru)).contiguous()

@@ -17,18 +17,22 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, silu
+from repro_torch.models.layers import Rng, dense_init, rng_device, silu, \
+    split_rng
 
 
-def init_rwkv_layer(gen: torch.Generator, d: int, f: int, head_dim: int,
+def init_rwkv_layer(rng: Rng, d: int, f: int, head_dim: int,
                     dtype, n_stack: int = 0) -> Dict:
     """As the reference: one draw per weight, the same for every layer of
-    a stack."""
+    a stack. From a threefry key, the reference's draws (its ``split(key,
+    12)``, ``ks[0..8]`` in the order below); from a generator,
+    ``torch.randn`` in that order."""
     H = d // head_dim
-    dev = gen.device
+    dev = rng_device(rng)
+    ks = iter(split_rng(rng, 12))
 
     def mk(i, o):
-        w = dense_init(gen, i, o, dtype)
+        w = dense_init(next(ks), i, o, dtype)
         return w.expand((n_stack, i, o)).contiguous() if n_stack else w
 
     def vec(val, shape):

@@ -1,7 +1,8 @@
 """Decoder-only model assembly: the port of
 ``repro/models/transformer.py`` for serving the dense, moe, hybrid and ssm
-families, the dense family's training forward and loss, and the layers
-the encoder-decoder and VLM models (``encdec.py``, ``vlm.py``) build on.
+families, the training forward and loss of the dense, hybrid and ssm
+families, and the layers the encoder-decoder and VLM models
+(``encdec.py``, ``vlm.py``) build on.
 
 Params and caches keep the reference's layout, so weights converted from
 it drop in: ``groups/l{j}`` holds the j-th kind of layer of the repeating
@@ -11,10 +12,12 @@ pattern, stacked over ``n_groups`` (dense: one ``attn``; moe: one
 run as a Python loop over the stack (the reference scans it); with
 ``cfg.remat`` and grad on, each layer of the training forward is
 recomputed in the backward (``torch.utils.checkpoint``), as the
-reference's ``jax.checkpoint`` does. Training is the dense family's
-alone: the teacher-forced ``forward`` of the moe family runs without grad
-(and raises with it), that of the hybrid and ssm families raises, and so
-does ``init`` from a threefry key for every family but the dense one.
+reference's ``jax.checkpoint`` does. The dense, hybrid (recurrentgemma:
+RG-LRU layers and local attention) and ssm (RWKV-6) families train, their
+recurrences' gradients by the hand-written backward kernels on the card;
+the teacher-forced ``forward`` of the moe family runs without grad (and
+raises with it), and ``init`` from a threefry key raises for the moe
+family.
 
     init(rng)                          -> params
     forward(params, batch)             -> (logits, aux)       # teacher-forced
@@ -46,9 +49,11 @@ from repro_torch.models.layers import (Rng, compute_dtype, cross_entropy,
 
 Params = Dict[str, Any]
 
-# where training the families other than dense stands in ROADMAP.md
-TRAINING_TODO = ("ROADMAP.md §1, item 4: training the hybrid, ssm, moe, "
-                 "encdec and vlm families")
+# where training the families that do not train yet stands in ROADMAP.md
+TRAINING_TODO = ("ROADMAP.md §1, item 4: training the moe, encdec and vlm "
+                 "families")
+# the families that train
+TRAINED_FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def _zeros(shape, n_stack, device):
@@ -107,24 +112,23 @@ def _init_cross_layer(rng: Rng, cfg: ModelConfig, n_stack: int) -> Params:
     }
 
 
-def _init_rec_layer(gen: torch.Generator, cfg: ModelConfig,
-                    n_stack: int) -> Params:
+def _init_rec_layer(rng: Rng, cfg: ModelConfig, n_stack: int) -> Params:
     dt = compute_dtype(cfg)
+    k1, k2 = split_rng(rng, 2)
     return {
-        "ln1": _zeros((cfg.d_model,), n_stack, gen.device),
-        "ln2": _zeros((cfg.d_model,), n_stack, gen.device),
+        "ln1": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "ln2": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
         "rec": rglru_mod.init_rglru_block(
-            gen, cfg.d_model, cfg.lru_width or cfg.d_model, dt, n_stack),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, n_stack),
+            k1, cfg.d_model, cfg.lru_width or cfg.d_model, dt, n_stack),
+        "mlp": init_mlp(k2, cfg.d_model, cfg.d_ff, dt, n_stack),
     }
 
 
-def _init_rwkv_layer(gen: torch.Generator, cfg: ModelConfig,
-                     n_stack: int) -> Params:
+def _init_rwkv_layer(rng: Rng, cfg: ModelConfig, n_stack: int) -> Params:
     return {
-        "ln1": _zeros((cfg.d_model,), n_stack, gen.device),
-        "ln2": _zeros((cfg.d_model,), n_stack, gen.device),
-        "mix": rwkv_mod.init_rwkv_layer(gen, cfg.d_model, cfg.d_ff,
+        "ln1": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "ln2": _zeros((cfg.d_model,), n_stack, rng_device(rng)),
+        "mix": rwkv_mod.init_rwkv_layer(rng, cfg.d_model, cfg.d_ff,
                                         cfg.wkv_head_dim,
                                         compute_dtype(cfg), n_stack),
     }
@@ -235,6 +239,24 @@ def _train_moe_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig):
     return _moe_block(lp, _train_attend(lp, x, cfg), cfg)
 
 
+def _train_rec_layer(lp: Params, x: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The reference's ``_apply_rec_layer`` in train mode: no state."""
+    out, _ = rglru_mod.rglru_block(lp["rec"], rms_norm(x, lp["ln1"]))
+    x = x + out
+    return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]))
+
+
+def _train_rwkv_layer(lp: Params, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """The reference's ``_apply_rwkv_layer`` in train mode: no state."""
+    out, _ = rwkv_mod.time_mix(lp["mix"], rms_norm(x, lp["ln1"]), None,
+                               cfg.wkv_head_dim)
+    x = x + out
+    out2, _ = rwkv_mod.channel_mix(lp["mix"], rms_norm(x, lp["ln2"]), None)
+    return x + out2
+
+
 def _train_layer(fn, lp: Params, x: torch.Tensor, cfg: ModelConfig):
     """``fn(lp, x, cfg)``, a layer of the training forward. With
     ``cfg.remat`` and grad on, its activations are not kept: the backward
@@ -259,6 +281,8 @@ _SUBLAYER = {"attn": _apply_attn_layer, "moe": _apply_moe_layer,
              "rec": _apply_rec_layer, "rwkv": _apply_rwkv_layer}
 _SUBINIT = {"attn": _init_attn_layer, "moe": _init_moe_layer,
             "rec": _init_rec_layer, "rwkv": _init_rwkv_layer}
+_TRAIN_LAYER = {"attn": _train_attn_layer, "rec": _train_rec_layer,
+                "rwkv": _train_rwkv_layer}
 
 
 def _init_sub_cache(kind: str, cfg: ModelConfig, batch: int,
@@ -304,8 +328,8 @@ class Model:
         self.n_groups = cfg.n_layers // len(pat)
         self.n_rest = cfg.n_layers - self.n_groups * len(pat)
 
-    def _dense_only(self, what: str) -> None:
-        if self.cfg.family != "dense":
+    def _trained_family(self, what: str) -> None:
+        if self.cfg.family not in TRAINED_FAMILIES:
             raise NotImplementedError(
                 f"{what} of the {self.cfg.family} family: {TRAINING_TODO}")
 
@@ -318,7 +342,7 @@ class Model:
         cfg = self.cfg
         dt = compute_dtype(cfg)
         if not isinstance(rng, torch.Generator):
-            self._dense_only("init from a threefry key")
+            self._trained_family("init from a threefry key")
 
         def fold(k, data):
             return k if isinstance(k, torch.Generator) else \
@@ -356,23 +380,26 @@ class Model:
     # -- train forward --------------------------------------------------------
     def forward(self, p: Params, batch: Dict):
         """Teacher-forced logits (B, S, padded vocab) and the router aux
-        summed over the layers (float32 0.0 for the dense family). The moe
-        family's runs without grad only."""
+        summed over the layers (float32 0.0 but for the moe family). The
+        moe family's runs without grad only. Each layer of the stack, rest
+        layers too, runs under ``_train_layer``: with ``cfg.remat`` its
+        activations are recomputed in the backward."""
         if self.cfg.family != "moe" or wants_grad(p):
-            self._dense_only("the training forward")
+            self._trained_family("the training forward")
         cfg = self.cfg
         x = self._embed(p, batch["tokens"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        layers = [_index(p["groups"], i)[f"l{j}"]
+        layers = [(_index(p["groups"], i)[f"l{j}"], kind)
                   for i in range(self.n_groups)
-                  for j in range(len(self.pattern))]
-        layers += [p[f"rest{r}"] for r in range(self.n_rest)]
-        for lp in layers:
+                  for j, kind in enumerate(self.pattern)]
+        layers += [(p[f"rest{r}"], self.pattern[r])
+                   for r in range(self.n_rest)]
+        for lp, kind in layers:
             if cfg.family == "moe":
                 x, a = _train_moe_layer(lp, x, cfg)
                 aux = aux + a
             else:
-                x = _train_layer(_train_attn_layer, lp, x, cfg)
+                x = _train_layer(_TRAIN_LAYER[kind], lp, x, cfg)
         return self._head(p, x), aux
 
     def loss(self, p: Params, batch: Dict):

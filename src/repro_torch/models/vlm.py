@@ -47,7 +47,7 @@ class VLMModel(Model):
 
     def init(self, rng) -> Params:
         if not isinstance(rng, torch.Generator):
-            self._dense_only("init from a threefry key")
+            self._trained_family("init from a threefry key")
         cfg, dt = self.cfg, compute_dtype(self.cfg)
         p = {"embed": embed_init(rng, cfg.padded_vocab, cfg.d_model, dt),
              "ln_f": torch.zeros((cfg.d_model,), dtype=torch.float32,
@@ -76,7 +76,7 @@ class VLMModel(Model):
     def forward(self, p: Params, batch: Dict):
         """Teacher-forced logits (B, S, padded vocab) and aux 0.0."""
         if wants_grad(p):
-            self._dense_only("the training forward")
+            self._trained_family("the training forward")
         cfg = self.cfg
         img = self._project_image(p, batch)
         x = self._embed(p, batch["tokens"])

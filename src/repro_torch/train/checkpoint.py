@@ -67,7 +67,7 @@ def _write_npy(fid, arr: np.ndarray, dtype: str) -> None:
         return
     np.lib.format.write_array_header_1_0(
         fid, {"descr": dtype, "fortran_order": False, "shape": arr.shape})
-    fid.write(arr.tobytes(order="C"))
+    fid.write(memoryview(np.ascontiguousarray(arr).reshape(-1)).cast("B"))
 
 
 def file_digest(path: str) -> str:

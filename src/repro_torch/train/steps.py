@@ -79,17 +79,19 @@ def _canonical_leaf(leaf: Any) -> Tuple[np.ndarray, str]:
     return np.ascontiguousarray(arr), dtype
 
 
-def canonical_tree_bytes(tree: Any) -> Iterator[bytes]:
+def canonical_tree_bytes(tree: Any) -> Iterator[bytes | memoryview]:
     """The canonical byte framing of a tree, leaf by leaf: ``path | dtype |
     ndim | shape | little-endian C-order data``, byte for byte the
     reference's, so both packages commit the same digest for the same
-    values. Leaves are gathered to the host first."""
+    values. Leaves are gathered to the host first; a leaf's data comes as
+    a view of its C-contiguous host copy (no second copy of a state's
+    gigabytes)."""
     for pstr, leaf in _flatten_with_path(tree):
         arr, dtype = _canonical_leaf(leaf)
         yield pstr.encode() + b"\x00" + dtype.encode() + b"\x00"
         yield np.int64(arr.ndim).tobytes()
         yield np.asarray(arr.shape, np.int64).tobytes()
-        yield arr.tobytes(order="C")
+        yield memoryview(arr.reshape(-1)).cast("B")
 
 
 def tree_digest(tree: Any) -> str:

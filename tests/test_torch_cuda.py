@@ -788,11 +788,13 @@ def test_flash_backward_raises_for_what_it_cannot_take(card):
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention_tc_bwd.flash_attention_tc_bwd_cuda(
             q, q, q, o, lse, o, causal=True)
-    # no training instance: float32 at hd 256, bf16 at hd 256 and 32
+    # no training instance: float32 at hd 256, bf16 at hd 80 and 32 (bf16
+    # at hd 256 trains: the tensor-core training instance and the mma.sync
+    # backward)
     x = torch.randn(1, 8, 2, 256, device=card, requires_grad=True)
     with pytest.raises(TypeError, match="ROADMAP"):
         ops.flash_attention(x, x, x, causal=True)
-    for hd in (256, 32):
+    for hd in (80, 32):
         y = torch.randn(1, 8, 2, hd, device=card).bfloat16()
         with pytest.raises(TypeError, match="ROADMAP"):
             ops.flash_attention(y.requires_grad_(True), y, y, causal=True)
@@ -1145,3 +1147,189 @@ def test_reduced_moe_expert_choices_on_the_card_equal_the_cpus(card):
     out = smoke["reduced_vs_cpu"](card, "olmoe-1b-7b",
                                   {"flash_attention": 2})
     assert out["reduced_router_calls_with_equal_choices"] == 2 * 8
+
+
+# --------------------------------------------------------------------------
+# the recurrent families' training kernels: the decay scan's and WKV-6's
+# backward, and bf16 attention's at head dim 256
+# --------------------------------------------------------------------------
+
+# (B, S, C, h0, dh_last): S = 1, at and past the kernel's 16 steps of
+# loads, odd C, and recurrentgemma-2b's RG-LRU at batch 16
+_DECAY_BWD_CASES = [(2, 1, 5, True, True), (2, 16, 33, False, True),
+                    (3, 17, 130, True, False), (1, 50, 7, False, False),
+                    (16, 256, 2560, False, False)]
+
+
+@pytest.mark.parametrize("case", _DECAY_BWD_CASES)
+def test_decay_scan_bwd_kernel_matches_its_twin(card, case):
+    B, S, C, with_h0, with_last = case
+    gen = torch.Generator(device=card).manual_seed(B + S + C)
+    a = torch.rand((B, S, C), generator=gen, device=card) * 0.7 + 0.3
+    b = torch.randn((B, S, C), generator=gen, device=card)
+    h0 = torch.randn((B, C), generator=gen, device=card) if with_h0 else None
+    h, _ = decay_scan.decay_scan_cuda(a, b, h0)
+    dh = torch.randn((B, S, C), generator=gen, device=card)
+    dl = torch.randn((B, C), generator=gen, device=card) if with_last \
+        else None
+    before = decay_scan.bwd_launches
+    got = decay_scan.decay_scan_bwd_cuda(a, h, dh, dl, h0)
+    again = decay_scan.decay_scan_bwd_cuda(a, h, dh, dl, h0)
+    assert decay_scan.bwd_launches == before + 2
+    want = ref.decay_scan_bwd_ref(a, h, dh, dl, h0)
+    for g, x, w in zip(got, again, want):
+        assert torch.equal(g, x)
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+# (B, S, H, K, V): S = 1, at the edges of the backward's 8-step chunks,
+# K != V and odd, and rwkv6-7b's heads
+_WKV_BWD_SHAPES = [(2, 1, 2, 64, 64), (1, 7, 3, 64, 64), (2, 8, 2, 32, 32),
+                   (1, 9, 2, 64, 48), (2, 19, 3, 5, 7), (2, 64, 16, 64, 64)]
+# max |kernel - twin in the kernel's dtype| over the twin's largest entry
+_WKV_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _WKV_BWD_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_bwd_kernel_matches_its_twin(card, dtype, shape, with_state):
+    B, S, H, K, V = shape
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=card)
+    r, k, v = (randn(B, S, H, d).to(dtype) for d in (K, K, V))
+    w = torch.sigmoid(randn(B, S, H, K)) * 0.5 + 0.5
+    u, do = randn(H, K), randn(B, S, H, V)
+    s0 = randn(B, H, K, V) if with_state else None
+    dsf = randn(B, H, K, V) if with_state else None
+    before = wkv6.bwd_launches
+    got = wkv6.wkv6_bwd_cuda(r, k, v, w, u, do, dsf, s0)
+    again = wkv6.wkv6_bwd_cuda(r, k, v, w, u, do, dsf, s0)
+    assert wkv6.bwd_launches == before + 2
+    want = ref.wkv6_bwd_ref(r, k, v, w, u, do, dsf, s0)
+    for name, g, x, wnt in zip("rkvwu", got, again, want):
+        assert torch.equal(g, x), name
+        assert g.dtype == (dtype if name in "rkv" else torch.float32), name
+        wnt = wnt.to(g.dtype).float()
+        assert float((g.float() - wnt).abs().max()) <= \
+            _WKV_BWD_TOL[dtype] * float(wnt.abs().max()), name
+
+
+def test_the_recurrences_carry_the_gradient_through_the_kernels(card):
+    """With grad on, ops.decay_scan and ops.wkv6 on the card run the
+    forward kernel and one call of the backward kernel, and give the CPU
+    path's gradients; a start state that requires grad raises."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    a = (torch.rand((2, 30, 12), generator=gen, device=card) * 0.7 + 0.3)
+    b = torch.randn((2, 30, 12), generator=gen, device=card)
+    leaves = [x.requires_grad_(True) for x in (a, b)]
+    before = (decay_scan.launches, decay_scan.bwd_launches)
+    h, h_last = ops.decay_scan(*leaves)
+    got = torch.autograd.grad(h.square().sum() + h_last.sum(), leaves)
+    assert (decay_scan.launches - before[0],
+            decay_scan.bwd_launches - before[1]) == (1, 1)
+    cpu = [x.detach().cpu().requires_grad_(True) for x in leaves]
+    h, h_last = ops.decay_scan(*cpu)
+    want = torch.autograd.grad(h.square().sum() + h_last.sum(), cpu)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+    with pytest.raises(NotImplementedError, match="h0 requires grad"):
+        ops.decay_scan(a.detach(), b.detach(),
+                       torch.zeros((2, 12), device=card, requires_grad=True))
+
+    B, S, H, K = 2, 21, 3, 16
+    xs = [torch.randn((B, S, H, K), generator=gen, device=card)
+          for _ in range(3)]
+    w = torch.sigmoid(torch.randn((B, S, H, K), generator=gen,
+                                  device=card)) * 0.5 + 0.5
+    u = torch.randn((H, K), generator=gen, device=card)
+    leaves = [x.requires_grad_(True) for x in (*xs, w, u)]
+    before = (wkv6.launches, wkv6.bwd_launches)
+    out, s_final = ops.wkv6(*leaves)
+    got = torch.autograd.grad(out.square().sum() + s_final.sum(), leaves)
+    assert (wkv6.launches - before[0], wkv6.bwd_launches - before[1]) == \
+        (1, 1)
+    cpu = [x.detach().cpu().requires_grad_(True) for x in leaves]
+    out, s_final = ops.wkv6(*cpu)
+    want = torch.autograd.grad(out.square().sum() + s_final.sum(), cpu)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+    with pytest.raises(NotImplementedError, match="s0 requires grad"):
+        ops.wkv6(*(x.detach() for x in leaves),
+                 torch.zeros((B, H, K, K), device=card, requires_grad=True))
+
+
+# the hd-256 backward's cases: (B, S, T, H, Kv, causal, window):
+# recurrentgemma's 10 heads over 1 with windows shorter than S, ragged,
+# S != T, one query, GQA 2, not causal
+_TC256_BWD_CASES = [(2, 200, 200, 10, 1, True, 64), (1, 130, 130, 2, 2, True, 0),
+                    (1, 77, 77, 4, 1, False, 0), (1, 100, 170, 4, 2, False, 0),
+                    (3, 1, 1, 10, 1, True, 0), (1, 129, 129, 10, 1, True, 33)]
+
+
+@pytest.mark.parametrize("case", _TC256_BWD_CASES)
+def test_flash_hd256_backward_kernel_matches_its_twin(card, case):
+    from repro_torch.kernels import flash_attention_mma_bwd
+    B, S, T, H, Kv, causal, window = case
+    gen = torch.Generator(device=card).manual_seed(S + T + H + window)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).bfloat16()
+               for shape in ((B, S, H, 256), (B, T, Kv, 256),
+                             (B, T, Kv, 256)))
+    o, lse = flash_attention_tc.flash_attention_tc_lse_cuda(
+        q, k, v, causal=causal, window=window)
+    assert torch.equal(o, flash_attention_tc.flash_attention_tc_cuda(
+        q, k, v, causal=causal, window=window))
+    assert torch.allclose(lse, ref.flash_attention_lse_ref(
+        q, k, v, causal=causal, window=window), rtol=1e-4, atol=1e-4)
+    do = torch.randn(o.shape, generator=gen, device=card).bfloat16()
+    before = flash_attention_mma_bwd.launches
+    got = flash_attention_mma_bwd.flash_attention_mma_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_attention_mma_bwd.flash_attention_mma_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    assert flash_attention_mma_bwd.launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, a)
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.float() - w.bfloat16().float()).abs().max()) <= \
+            TC_BWD_TOL * scale
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+def test_reduced_recurrent_models_train_on_the_card_as_on_the_cpu(card,
+                                                                   arch):
+    """A reduced float32 model of each recurrent family from the same
+    threefry init: its loss and every gradient leaf on the card (the decay
+    scan's or WKV-6's forward and backward kernels, the CUDA-core flash
+    pair at hd 32) against the CPU port's; one step's launches."""
+    from repro_torch import random
+    from repro_torch.configs.base import InputShape, get_config, reduced
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg)
+    batch = SyntheticTokenPipeline(cfg, InputShape("t", 48, 2, "train"),
+                                   seed=0).batch(0)
+    out = {}
+    for device in (card, torch.device("cpu")):
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          model.init(random.key(0).to(device)))
+        before = (decay_scan.bwd_launches, wkv6.bwd_launches)
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out[device.type] = (float(loss), [g.cpu() for g in grads],
+                            (decay_scan.bwd_launches - before[0],
+                             wkv6.bwd_launches - before[1]))
+    want = (2, 0) if arch == "recurrentgemma-2b" else (0, 2)
+    assert out["cuda"][2] == want and out["cpu"][2] == (0, 0)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert float(torch.linalg.vector_norm(g - w)) <= 1e-4 * float(
+            torch.linalg.vector_norm(w))

@@ -270,10 +270,9 @@ def test_normal_concat_passes_change_no_bit(monkeypatch):
 def test_flash_attention_training_kernels_by_dtype_and_head_dim():
     for hd in (16, 32, 64, 128):
         assert fa.train_kernels_for(torch.float32, hd) == "cuda_core"
-    for hd in (64, 128):
+    for hd in (64, 128, 256):
         assert fa.train_kernels_for(torch.bfloat16, hd) == "tensor_core"
-    for dtype, hd in ((torch.bfloat16, 256), (torch.bfloat16, 32),
-                      (torch.bfloat16, 80),
+    for dtype, hd in ((torch.bfloat16, 32), (torch.bfloat16, 80),
                       (torch.float16, 128), (torch.float32, 256)):
         with pytest.raises(TypeError, match="no training instance"):
             fa.train_kernels_for(dtype, hd)
